@@ -11,12 +11,14 @@ Phases, each of which raises on failure (nothing is caught):
    bit for bit;
 3. the head forward kernel against its plain PyTorch version on the card
    at every shape the configs give it, soft and hard y, in-kernel and
-   streamed noise; CUDA-event medians of the bare kernel (launched back
-   to back), of the wrapper's call and of the plain version;
+   streamed noise; the bare kernel's device time a launch from the
+   profiler over 200 launches (``device_us``), and CUDA-event medians of
+   the bare kernel (launched back to back: at small shapes the host's
+   launch rate), of the wrapper's call and of the plain version;
 4. the head backward kernel (``[head_bwd]``) at the same shapes and modes
    against its plain version ``manual_bwd`` and against autograd of the
-   plain forward, and bit-identical across two runs; the same timings,
-   and the Function's backward through autograd;
+   plain forward, and bit-identical across two runs; the same timings
+   (one launch a call), and the Function's backward through autograd;
 5. the eval slice: mnist_k10 at full width from a seeded init, ``api.
    eval_elbo`` over the 10,000-image test set through the kernel (its launch
    count must be 79 batches x eval_samples), the same eval with the plain
@@ -170,6 +172,15 @@ def cuda_ms(fn, iters, reps=5):
     return statistics.median(times)
 
 
+def launch_device_us(fn, iters=200):
+    """Device us a call of ``fn`` spends in kernels, from the profiler over
+    ``iters`` calls back to back, after a warm-up."""
+    for _ in range(3):
+        fn()
+    _, busy, _, _ = profile_device(lambda: [fn() for _ in range(iters)])
+    return 1e6 * busy / iters
+
+
 def wall_ms(fn, reps=9):
     """Median host wall time of ``fn`` (which must wait for its result)
     over ``reps`` calls, after one warm-up call."""
@@ -275,13 +286,15 @@ def phase_head(dev):
                                              hard, noise)
             check(launch(*args) == 0, f'bare launch failed at {(b, k, d)}')
             ms = cuda_ms(lambda: launch(*args), 200)
+            dev_us = launch_device_us(lambda: launch(*args))
             call_ms = cuda_ms(kern, 200)
             plain_ms = cuda_ms(plain, 10)
             bound, by = head_bound_ms(b, k, d, streamed)
             row = dict(shape=[b, k, d], hard=hard,
                        noise='streamed' if streamed else 'threefry',
                        tau=tau, max_abs_err=absmax, zy_abs_err=zy,
-                       scal_rel_err=rel, ms=ms, call_ms=call_ms,
+                       scal_rel_err=rel, device_us=dev_us, ms=ms,
+                       call_ms=call_ms,
                        plain_ms=plain_ms, bound_ms=bound, bound_by=by)
             rows.append(row)
             log(f'[head] {json.dumps(row)}')
@@ -296,15 +309,16 @@ def bwd_bound_ms(b, k, d, streamed):
     ``head_bound_ms``: the inputs (head inputs, the three cotangents) read
     once and the six gradients written once, against float32 operations
     (the forward's recomputation, the VJP, the batch sum); and, apart, the
-    time of the kernel's own scratch traffic (the per-row prior-gradient
-    partials written and read back), which the function does not need."""
-    part = b * (k + 2 * k * d)
+    time of the kernel's own scratch traffic (one prior-gradient partial
+    per cluster of row blocks, written and read back), which the function
+    does not need."""
+    part = _build.library().gmvae_fused_elbo_bwd_scratch(b, k, d)
     floats = (b * k + 2 * b * k * d + k + 2 * k * d       # head inputs
               + b * d + b * k + 8 * b                     # cotangents
               + b * k + 2 * b * k * d + k + 2 * k * d)    # gradients
     if streamed:
         floats += b * k + b * d
-    flops = b * (52 * k * d + 40 * d + 55 * k) + part
+    flops = b * (52 * k * d + 40 * d + 55 * k) + b * (k + 2 * k * d)
     t_bytes = 4 * floats / PEAK_BYTES
     t_ops = flops / PEAK_F32_FLOPS
     scratch_ms = 1e3 * 4 * 2 * part / PEAK_BYTES
@@ -410,6 +424,7 @@ def phase_head_bwd(dev):
         bare_args, _ = fused_elbo_bwd.launch_args(*args)
         check(launch(*bare_args) == 0, f'bare launch failed at {(b, k, d)}')
         ms = cuda_ms(lambda: launch(*bare_args), 200)
+        dev_us = launch_device_us(lambda: launch(*bare_args))
         call_ms = cuda_ms(kern, 200)
         fn_ms = cuda_ms(lambda: torch.autograd.grad(loss, ins,
                                                     retain_graph=True), 50)
@@ -421,7 +436,7 @@ def phase_head_bwd(dev):
                    max_abs_err=err, max_abs_err_vs_autograd=err_auto,
                    err_share_of_tol=share,
                    autograd_err_share_of_tol=share_auto,
-                   f64_err_share_of_tol=f64_shares,
+                   f64_err_share_of_tol=f64_shares, device_us=dev_us,
                    ms=ms, call_ms=call_ms, autograd_bwd_ms=fn_ms,
                    plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                    scratch_ms=scratch_ms)
@@ -630,7 +645,6 @@ def phase_train(dev):
                 device_kernels_per_step=n_kernels / PROFILE_STEPS,
                 fwd_kernel_device_us=per_launch_us('fused_elbo_fwd_kernel'),
                 bwd_kernel_device_us=per_launch_us('fused_elbo_bwd_kernel'),
-                bwd_sum_kernel_device_us=per_launch_us('prior_grad_sum'),
                 top=[dict(name=k[:80], launches=n, device_us=us)
                      for k, (n, us) in top])
     log(f'[train_profile] {json.dumps(prof)}')
@@ -837,7 +851,7 @@ def _kernel_class(name):
     only float32 GEMMs of a bf16 step), net_gemm (bf16 Dense layers),
     head (the head kernels) or other."""
     low = name.lower()
-    if 'fused_elbo' in low or 'prior_grad_sum' in low:
+    if 'fused_elbo' in low:
         return 'head'
     if any(p in low for p in ('fprop', 'dgrad', 'wgrad', 'conv', 'cudnn',
                               'implicit')):
@@ -935,9 +949,8 @@ def phase_cifar_train(dev):
                 device_us_per_step_by_class=per_step,
                 fwd_kernel_device_us=device_us(
                     by_name, 'fused_elbo_fwd_kernel')[1] / CIFAR_PROFILE_STEPS,
-                bwd_kernels_device_us=device_us(
-                    by_name, 'fused_elbo_bwd_kernel', 'prior_grad_sum')[1]
-                / CIFAR_PROFILE_STEPS,
+                bwd_kernel_device_us=device_us(
+                    by_name, 'fused_elbo_bwd_kernel')[1] / CIFAR_PROFILE_STEPS,
                 head_gemms_fwd_device_us=gemm_fwd_us,
                 head_gemms_bwd_device_us=gemm_bwd_us,
                 head_path_share=head_path_us / busy_us,
@@ -995,6 +1008,7 @@ def main():
         'launches': launches['fused_elbo_fwd'],
         'launches_eval': eval_launches['fused_elbo_fwd'],
         'max_abs_err': main_row['max_abs_err'],
+        'device_us': main_row['device_us'],
         'ms': main_row['ms'], 'plain_ms': main_row['plain_ms'],
         'bound_ms': main_row['bound_ms'], 'bound_by': main_row['bound_by'],
         'library_ms': None,
@@ -1011,15 +1025,14 @@ def main():
         'also_replaces': 'gmvae_tpu/ops/kernels/fused_elbo_bwd.py:219',
         'launches': launches['fused_elbo_bwd'],
         'max_abs_err': bwd_row['max_abs_err'],
+        'device_us': bwd_row['device_us'],
         'ms': bwd_row['ms'], 'call_ms': bwd_row['call_ms'],
         'plain_ms': bwd_row['plain_ms'],
         'bound_ms': bwd_row['bound_ms'], 'bound_by': bwd_row['bound_by'],
         'library_ms': None,
         'device_us_in_train': train_prof['bwd_kernel_device_us'],
-        'sum_kernel_device_us_in_train':
-            train_prof['bwd_sum_kernel_device_us'],
         'launches_cifar_train': cifar_launches['fused_elbo_bwd'],
-        'device_us_in_cifar_train': cifar_prof['bwd_kernels_device_us'],
+        'device_us_in_cifar_train': cifar_prof['bwd_kernel_device_us'],
         'launches_boundary': boundary_launches['fused_elbo_bwd'],
         'shapes': bwd_rows,
     }, {

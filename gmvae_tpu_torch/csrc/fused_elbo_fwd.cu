@@ -21,16 +21,17 @@
 // operations, far below the card's ~20 flop/byte balance point for float32
 // outside the tensor cores. At the flagship shape (B=128, K=10, D=10) a
 // call moves ~120 KB (0.04 us at 3.35 TB/s), so in practice latency sets
-// its time: the chain of dependent steps a row goes through (noise,
-// softmax, mixing, K component densities, two LSEs). The design shortens
-// that chain by spreading each row's K*D work over a whole block, and
-// keeps every intermediate (noise, y, the mixing partials, z, the
-// K-vectors) in shared memory, so device memory sees only the inputs once
-// (q re-reads hit L1) and the outputs once.
+// its time: the chain of dependent steps a row goes through.
 //
-// Layout and the per-row steps: head_row.cuh (row_forward, shared with the
-// backward and wide kernels; row_scalars, the conditionals, the two LSEs
-// and the packed scalars on warp 0, shared with the wide kernel).
+// Design (head_row.cuh has the layout and the steps). One block per row
+// stages the row's q tiles and the prior in shared memory by TMA bulk
+// copies (or cp.async where unaligned) issued as the block starts, so the
+// copies overlap the threefry noise and each input crosses from L2 or
+// device memory once per block (at (128,64,256), where the four tiles do
+// not fit, the q tiles only, and the prior is read once from L2). The
+// K-vector steps (softmax and argmax, the two log-softmaxes) run on three
+// warps side by side, the packed scalars on four. z and y are stored as
+// float4 where aligned.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -42,16 +43,25 @@ namespace {
 
 using namespace gmvae;
 
-__global__ void fused_elbo_fwd_kernel(const HeadIn in,
+__global__ void __launch_bounds__(32 * kMaxWarps)
+    fused_elbo_fwd_kernel(const HeadIn in, const int stage_q,
+                                      const int stage_p,
                                       float* __restrict__ z_out,
                                       float* __restrict__ y_out,
                                       float* __restrict__ scal_out) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
+  float* tiles = reinterpret_cast<float*>(smem_raw + kHeaderBytes);
   const int row = blockIdx.x;
   const int K = in.K, D = in.D;
-  const RowState st = row_state(smem, K, D);
-  const float kl = row_forward(in, row_in(in, row), st, row, y_out, z_out);
-  row_scalars(st, K, D, kl, row, scal_out);
+  const int kd = K * D;
+  RowIn r = row_in(in, row);
+  const Staging staged = stage_row(tiles, kd, stage_q, stage_p, r, bar);
+  const RowState st =
+      row_state(tiles + static_cast<size_t>(2 * (stage_q + stage_p)) * kd,
+                K, D, blockDim.x / in.L);
+  row_forward(in, r, st, row, staged, y_out, z_out);
+  row_scalars(in, st, row, scal_out);
 }
 
 __global__ void threefry_grid_kernel(uint32_t k0, uint32_t k1,
@@ -81,16 +91,16 @@ int gmvae_fused_elbo_fwd(const float* k_logits, const float* q_means,
                          unsigned int k0, unsigned int k1, float tau,
                          int hard, void* stream) {
   const int L = group_lanes(D);
-  const int W = block_warps(K, D);
-  const size_t smem = row_state_floats(K, D, 32 * W / L) * sizeof(float);
-  const cudaError_t e = allow_smem(fused_elbo_fwd_kernel, smem);
+  const LaunchPlan lp = plan_launch(K, D, 0, false, kMaxWarps);
+  const SmemPlan& plan = lp.smem;
+  const cudaError_t e = allow_smem(fused_elbo_fwd_kernel, plan.bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const HeadIn in{k_logits, q_means, q_logvars, pi_logits, p_means,
                   p_logvars, g_in,     eps_in,    K,         D,
                   L,        k0,        k1,        tau,       hard};
-  fused_elbo_fwd_kernel<<<B, 32 * W, smem,
-                          static_cast<cudaStream_t>(stream)>>>(in, z, y,
-                                                                scal);
+  fused_elbo_fwd_kernel<<<B, 32 * lp.warps, plan.bytes,
+                          static_cast<cudaStream_t>(stream)>>>(
+      in, plan.stage_q, plan.stage_p, z, y, scal);
   return static_cast<int>(cudaGetLastError());
 }
 

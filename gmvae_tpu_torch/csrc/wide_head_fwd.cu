@@ -32,7 +32,8 @@
 // version that issued 4). The projections stay in shared memory ((K+2N)*4
 // B a row: 0.8 KB and 20.6 KB at the two shapes); k_logits is also written
 // out. Then the block runs head_row.cuh's row_forward and row_scalars on
-// each of its rows in turn, reading the projections from shared memory.
+// each of its rows in turn, reading the projections from shared memory
+// (nothing to stage) and the prior from device memory.
 // The cost of the simple design: every block re-reads the whole weight
 // matrix, so the B/TB = 32 blocks of a B=128 call read 32 times 10.5 MB
 // at K=20, D=128 (from L2, which holds 50 MB), and 32 blocks leave most of
@@ -52,6 +53,7 @@ using namespace gmvae;
 
 constexpr int kTileRows = 4;  // TB: rows a block computes
 constexpr int kUnroll = 16;   // weight loads a thread issues at once
+constexpr int kWideWarps = 8;  // warps per block at most
 
 struct WideIn {
   const float* feats;  // [B, H]
@@ -80,7 +82,7 @@ __global__ void wide_head_fwd_kernel(const WideIn w, const HeadIn in,
   float* fs = smem;                    // [TB, H] the tile's feats
   float* proj = fs + kTileRows * H;    // [TB, K + 2N] its projections
   const RowState st = row_state(proj + static_cast<size_t>(kTileRows) * cols,
-                                K, D);
+                                K, D, T / in.L);
 
   // ---- the tile's feats, zero past the batch's end ------------------------
   for (int i = t; i < kTileRows * H; i += T) {
@@ -153,10 +155,11 @@ __global__ void wide_head_fwd_kernel(const WideIn w, const HeadIn in,
   // ---- the head on each row, from the projections in shared memory --------
   for (int r = 0; r < kTileRows && row0 + r < B; ++r) {
     const float* p = proj + static_cast<size_t>(r) * cols;
-    const RowIn ri{p, p + K, p + K + N};
-    const float kl = row_forward(in, ri, st, row0 + r, y_out, z_out);
-    row_scalars(st, K, D, kl, row0 + r, scal_out);
-    __syncthreads();  // warp 0's reads of st before the next row writes it
+    const RowIn ri{p, p + K, p + K + N, in.p_means, in.p_logvars};
+    row_forward(in, ri, st, row0 + r, Staging{nullptr, kStageNone}, y_out,
+                z_out);
+    row_scalars(in, st, row0 + r, scal_out);
+    __syncthreads();  // row_scalars' reads of st before the next row writes it
   }
 }
 
@@ -168,7 +171,7 @@ extern "C" {
 // it against the card's limit before it launches).
 size_t gmvae_wide_head_smem(int H, int K, int D) {
   const int L = group_lanes(D);
-  const int G = 32 * block_warps(K, D) / L;
+  const int G = 32 * block_warps(K, D, kWideWarps) / L;
   const size_t cols = static_cast<size_t>(K) + 2 * static_cast<size_t>(K) * D;
   return (kTileRows * (static_cast<size_t>(H) + cols) +
           row_state_floats(K, D, G)) *
@@ -185,7 +188,7 @@ int gmvae_wide_head_fwd(const float* feats, const float* wk, const float* bk,
                         int B, int H, int K, int D, unsigned int k0,
                         unsigned int k1, float tau, void* stream) {
   const int L = group_lanes(D);
-  const int W = block_warps(K, D);
+  const int W = block_warps(K, D, kWideWarps);
   const size_t smem = gmvae_wide_head_smem(H, K, D);
   const cudaError_t e = allow_smem(wide_head_fwd_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -48,8 +48,9 @@ _U = ctypes.c_uint
 _SIGNATURES = {
     'gmvae_fused_elbo_fwd': (_I, [_P] * 11 + [_I, _I, _I, _U, _U,
                                               ctypes.c_float, _I, _P]),
-    'gmvae_fused_elbo_bwd': (_I, [_P] * 18 + [_I, _I, _I, _U, _U,
+    'gmvae_fused_elbo_bwd': (_I, [_P] * 19 + [_I, _I, _I, _U, _U,
                                               ctypes.c_float, _I, _P]),
+    'gmvae_fused_elbo_bwd_scratch': (ctypes.c_size_t, [_I, _I, _I]),
     'gmvae_wide_head_fwd': (_I, [_P] * 14 + [_I] * 4 + [_U, _U,
                                                         ctypes.c_float, _P]),
     'gmvae_wide_head_smem': (ctypes.c_size_t, [_I, _I, _I]),

@@ -14,12 +14,13 @@ What bounds the forward on an H100: bytes, not operations. A row reads
 2*K*D + K floats and writes D + K + 8 for about 22*K*D float32 operations,
 and at the flagship shape (B=128, K=10, D=10) a call moves ~120 KB: in
 practice a launch is latency-bound (the chain of dependent steps through a
-row; times in PERF.md). The design spreads each row's K*D work over up to 8
-warps to shorten that chain, keeps the noise, y, the mixing partials, z
-and the two K-vectors of log-densities in shared memory, so device memory
-sees each input once and each output once, and generates the Gumbel and
-normal noise in the kernel from the caller's threefry key (no noise arrays
-cross device memory).
+row; times in PERF.md). The design (``csrc/head_row.cuh``): one block of 4
+to 8 warps per row stages the row's q tiles and the prior in shared memory
+by TMA bulk copies issued as it starts, overlapped with the threefry noise
+it draws from the caller's key (no noise arrays cross device memory), so
+each input crosses from L2 or device memory once per block; the K-vector
+steps run on separate warps side by side; the intermediates stay in shared
+memory and each output is written once.
 
 Noise: with ``noise=None`` the kernel draws threefry noise over the
 counters ``c0 = (row << 16) | col``, ``c1 = SALT_GUMBEL`` (cols < K) or

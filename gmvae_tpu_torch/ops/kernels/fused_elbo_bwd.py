@@ -11,13 +11,17 @@ it picks the forward's argmax.
 
 What bounds it on an H100: bytes, not operations. A row reads 2*K*D + 2K
 + D + 8 floats and writes 2*K*D + K, for about 50*K*D float operations;
-at the flagship shape the function moves ~230 KB and the kernel another
-~215 KB of per-row prior-gradient partials, so, like the forward, a launch
-is latency-bound in practice (the chain of dependent phases through a
-row). The batch-summed prior
-gradients are not summed with float atomics: each row writes its partial
-to a scratch buffer and a second kernel sums the rows in row order, so two
-runs give bit-identical gradients.
+at the flagship shape the function moves ~230 KB, so a launch is
+latency-bound in practice (the chain of dependent phases through a row).
+One call is one launch. The batch-summed prior gradients are not summed
+with float atomics: the row blocks run in clusters of up to 8, each
+cluster sums its rows' partials in rank order through distributed shared
+memory into one scratch row, and for each cluster rank the last block to
+finish (an integer ticket a rank) sums that rank's columns over the
+cluster rows in order, so two runs give bit-identical gradients. The
+tickets are 8 device counters per device, allocated and zeroed once, which
+every call leaves at 0; calls on one device must not overlap (one stream
+at a time).
 
 ``manual_bwd`` is the plain version: the analytic VJP, step for step the
 reference's ``manual_bwd`` (sections A-N), in plain torch.
@@ -25,7 +29,7 @@ reference's ``manual_bwd`` (sections A-N), in plain torch.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -152,13 +156,27 @@ def manual_bwd(g, eps, k_logits, q_means, q_logvars, pi_logits, p_means,
                     torch.sum(d_plv_b, dim=0) * plv_mask)
 
 
+_TICKETS: Dict[int, torch.Tensor] = {}
+CLUSTER_RANKS = 8   # blocks a cluster at most: one ticket each
+
+
+def _ticket(dev: torch.device) -> torch.Tensor:
+    """The backward kernel's tickets on ``dev``, one per cluster rank:
+    zeroed int32, allocated once; every launch leaves them at 0."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _TICKETS:
+        _TICKETS[index] = torch.zeros(CLUSTER_RANKS, dtype=torch.int32,
+                                      device=torch.device('cuda', index))
+    return _TICKETS[index]
+
+
 def launch_args(key_u32: Sequence[int], k_logits, q_means, q_logvars,
                 pi_logits, p_means, p_logvars, tau, hard: bool, cs, cz, cy,
                 noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Check the inputs and allocate the outputs of one backward launch:
     ``(args, grads)``, ``args`` the C function's arguments on the current
     stream, ``grads`` the ``BwdGrads`` it fills. ``chip_smoke.py`` reuses
-    them to time the bare kernels."""
+    them to time the bare kernel."""
     b, k = k_logits.shape
     d = q_means.shape[-1]
     g_in, eps_in = noise if noise is not None else (None, None)
@@ -176,12 +194,14 @@ def launch_args(key_u32: Sequence[int], k_logits, q_means, q_logvars,
     empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
     grads = BwdGrads(empty(b, k), empty(b, k, d), empty(b, k, d), empty(k),
                      empty(k, d), empty(k, d))
-    partial = empty(b, k + 2 * k * d)   # per-row prior-gradient partials
+    # one prior-gradient partial per cluster of row blocks
+    with torch.cuda.device(dev):
+        scratch = empty(_build.library().gmvae_fused_elbo_bwd_scratch(b, k, d))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     args = (ptr(k_logits), ptr(q_means), ptr(q_logvars), ptr(pi_logits),
             ptr(p_means), ptr(p_logvars), ptr(g_in), ptr(eps_in), ptr(cs),
-            ptr(cz), ptr(cy), *(ptr(t) for t in grads), ptr(partial),
-            b, k, d, k0, k1, float(tau), int(bool(hard)),
+            ptr(cz), ptr(cy), *(ptr(t) for t in grads), ptr(scratch),
+            ptr(_ticket(dev)), b, k, d, k0, k1, float(tau), int(bool(hard)),
             torch.cuda.current_stream(dev).cuda_stream)
     return args, grads
 
@@ -190,7 +210,7 @@ def fused_elbo_bwd(key_u32, k_logits, q_means, q_logvars, pi_logits, p_means,
                    p_logvars, tau, hard: bool, cs, cz, cy,
                    noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                    ) -> BwdGrads:
-    """The head's backward: the CUDA kernels for CUDA tensors, ``manual_bwd``
+    """The head's backward: the CUDA kernel for CUDA tensors, ``manual_bwd``
     over the replayed (or streamed) noise for CPU tensors."""
     device = k_logits.device
     if device.type == 'cpu':

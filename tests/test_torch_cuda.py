@@ -186,6 +186,86 @@ def test_bwd_kernel_matches_manual_bwd(dev, shape, hard, streamed):
         assert torch.equal(a, b_)   # no atomics: bit-identical runs
 
 
+def _bwd_args(b, k, d, dev, streamed, hard=False, key=(7, 9)):
+    kl, qm, qlv, prior, noise = _inputs(b, k, d, dev)
+    cs, cz, cy = _cotangents(b, k, d, dev)
+    g, eps = noise if streamed else threefry.replay_noise(key, b, k, d, dev)
+    args = (key, kl, qm, qlv, *prior, 0.8, hard, cs, cz, cy,
+            noise if streamed else None)
+    ref = fused_elbo_bwd.manual_bwd(g, eps, kl, qm, qlv, *prior, 0.8, cs, cz,
+                                    cy, hard=hard)
+    return args, ref
+
+
+@pytest.mark.parametrize('streamed', [False, True])
+@pytest.mark.parametrize('shape', [(1, 10, 10), (13, 10, 10), (1, 20, 128),
+                                   (17, 20, 128)])
+def test_bwd_kernel_at_ragged_batches(dev, shape, streamed):
+    """Batches that are not a multiple of the cluster size (padding blocks)
+    and B=1 (a cluster of one)."""
+    b, k, d = shape
+    args, ref = _bwd_args(b, k, d, dev, streamed)
+    got = fused_elbo_bwd.fused_elbo_bwd(*args)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, ref, per_row=k * d >= 2560)
+
+
+def test_bwd_kernel_is_one_launch(dev):
+    """10 backward calls launch 10 kernels, all the backward kernel."""
+    from gmvae_tpu_torch.utils.profiling import profile_device
+    args, _ = _bwd_args(128, 10, 10, dev, False)
+    fused_elbo_bwd.fused_elbo_bwd(*args)      # warm: the ticket, the build
+    _, _, _, by_name = profile_device(
+        lambda: [fused_elbo_bwd.fused_elbo_bwd(*args) for _ in range(10)])
+    kernels = {name: n for name, (n, _) in by_name.items()
+               if not name.startswith(('Memcpy', 'Memset'))}
+    assert len(kernels) == 1, by_name
+    (name, n), = kernels.items()
+    assert 'fused_elbo_bwd_kernel' in name and n == 10, by_name
+
+
+@pytest.mark.parametrize('shape', [(128, 10, 10), (37, 5, 11),
+                                   (128, 20, 128)])
+def test_bwd_kernel_reruns_bit_identical(dev, shape):
+    """50 calls in a row equal the first bit for bit: the cluster tickets
+    are back at 0 after every call."""
+    args, _ = _bwd_args(*shape, dev, False)
+    first = fused_elbo_bwd.fused_elbo_bwd(*args)
+    for _ in range(50):
+        again = fused_elbo_bwd.fused_elbo_bwd(*args)
+        for a, b_ in zip(first, again):
+            assert torch.equal(a, b_)
+    assert not fused_elbo_bwd._ticket(dev).any()
+
+
+@pytest.mark.parametrize('gumbel', [0.0, 0.37])
+def test_hard_argmax_agrees_on_tied_logits(dev, gumbel):
+    """Rows whose perturbed logits tie (streamed noise, the same in every
+    column of a row): the forward's one-hot y sits at the first index among
+    equals, and the backward takes the same y (it matches manual_bwd, whose
+    argmax is the first index)."""
+    b, k, d = 16, 10, 10
+    kl, qm, qlv, prior, _ = _inputs(b, k, d, dev)
+    kl = torch.zeros_like(kl)
+    kl[:, 3] = kl[:, 6] = kl[:, 8] = 2.0           # three tied maxima
+    kl[::2, 1] = 2.0                               # and a fourth, earlier
+    eps = torch.randn(b, d, device=dev, generator=torch.Generator(
+        dev).manual_seed(0))
+    noise = (torch.full_like(kl, gumbel), eps)
+    with torch.no_grad():
+        y = fused_elbo.fused_mixture_elbo((7, 9), kl, qm, qlv, prior, 0.8,
+                                          True, noise).y
+    first = torch.where(torch.arange(b, device=dev) % 2 == 0, 1, 3)
+    assert torch.equal(y.argmax(-1), first)
+    assert torch.equal(y.sum(-1), torch.ones(b, device=dev))
+    cs, cz, cy = _cotangents(b, k, d, dev)
+    got = fused_elbo_bwd.fused_elbo_bwd((7, 9), kl, qm, qlv, *prior, 0.8,
+                                        True, cs, cz, cy, noise)
+    ref = fused_elbo_bwd.manual_bwd(*noise, kl, qm, qlv, *prior, 0.8, cs, cz,
+                                    cy, hard=True)
+    _assert_grads_close(got, ref)
+
+
 @pytest.mark.parametrize('hard', [False, True])
 def test_head_function_grads_match_autograd_of_plain(dev, hard):
     b, k, d = 37, 5, 11
