@@ -39,8 +39,10 @@ Phases, each of which raises on failure (nothing is caught):
 8. the wide head (``[head_wide]``): ``csrc/wide_head_fwd.cu`` against its
    plain version at the ablation's two shapes and a ragged batch, its
    Function's gradients against autograd of the plain version, reruns
-   bit-identical; the bare kernel, the call, the plain version and the
-   narrow path (three matmuls + the head kernel) it stands beside;
+   bit-identical; the bare kernel's device time a launch from the profiler
+   over 200 launches (``device_us``) and its CUDA-event time, the call, the
+   plain version and the narrow path (three matmuls + the head kernel) it
+   stands beside; its float32 bound and the bound of its 3xTF32 work;
 9. the head-boundary ablation (``[boundary]``): narrow and wide rows of
    ``gmvae_tpu_torch/tools/bench_head_boundary.py`` at both shapes, with
    exact launch counts;
@@ -71,6 +73,8 @@ import numpy as np
 import torch
 
 from gmvae_tpu_torch.ops.kernels import _build
+from gmvae_tpu_torch.tools.head_kernel_times import (WIDE_SHAPES,
+                                                     wide_bounds_us)
 from gmvae_tpu_torch.utils.profiling import device_us, profile_device
 
 # f32 operations outside the tensor cores and device memory rate of one
@@ -118,13 +122,13 @@ XCHECK_ELBO_RTOL = 1e-3
 XCHECK_PARAM_MEAN = 5e-5
 XCHECK_PRIOR_MAX = 0.25      # of lr * steps
 PRIOR_LEAVES = ('pi_logits', 'prior_means', 'prior_logvars')
-# the wide head (H, K, D, B): the ablation's two shapes and a ragged batch.
-# k_logits is a float32 sum over H in another order than cuBLAS's: within
+# the wide head at WIDE_SHAPES (H, K, D, B; head_kernel_times.py's): the
+# ablation's two shapes and a ragged batch. k_logits is a float32 sum over
+# H (3xTF32 on the tensor cores) in another order than cuBLAS's: within
 # WIDE_KL_RTOL of max(|plain|, 1). Gradients against autograd of the plain
 # version: each within GRAD_ATOL plus GRAD_RTOL (AUTOGRAD_RTOL at K*D >=
 # 2560) of its tensor's largest |autograd| entry, since the weight and feats
 # gradients are the matmuls' VJPs, sums over B or K*D products
-WIDE_SHAPES = [(512, 10, 10, 128), (512, 20, 128, 128), (512, 10, 10, 37)]
 WIDE_MAIN = (512, 20, 128, 128)   # cifar_head: the boundary in question
 WIDE_KL_RTOL = 1e-5
 # the ablation's parity of the two boundaries: z, y, k_logits within 1e-5;
@@ -706,21 +710,6 @@ def wide_inputs(h, k, d, b, seed, dev):
                              ).to(dev)]
 
 
-def wide_bound_ms(b, h, k, d):
-    """Least time for the wide head's work: feats, the weights, biases and
-    the prior read once, z, y, the scalars and k_logits written once,
-    against its float32 operations (the projections' 2*B*H*(K+2N) and the
-    head's, as ``head_bound_ms``)."""
-    n = k * d
-    floats = (b * h + h * (k + 2 * n) + (k + 2 * n) + k + 2 * n
-              + b * d + b * k + 8 * b + b * k)
-    flops = 2 * b * h * (k + 2 * n) + b * (22 * k * d + 14 * d + 25 * k)
-    t_bytes = 4 * floats / PEAK_BYTES
-    t_ops = flops / PEAK_F32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else \
-        'operations'
-
-
 def phase_head_wide(dev):
     """The wide kernel against its plain version, its Function's gradients
     against autograd of the plain version, and the narrow path (three
@@ -729,7 +718,8 @@ def phase_head_wide(dev):
     from gmvae_tpu_torch.ops.kernels import fused_elbo, wide_head
     rows, main = [], None
     key, tau = (2724472204, 3573582090), 1.0
-    launch = _build.library().gmvae_wide_head_fwd
+    lib = _build.library()
+    launch = lib.gmvae_wide_head_fwd
     for i, (h, k, d, b) in enumerate(WIDE_SHAPES):
         ins = wide_inputs(h, k, d, b, 200 + i, dev)
         kern = lambda: wide_head.wide_head(key, tau, *ins, k, d)  # noqa: E731
@@ -786,6 +776,7 @@ def phase_head_wide(dev):
             args, out = wide_head.launch_args(key, tau, *ins, k, d)
             check(launch(*args) == 0, f'bare wide launch failed at '
                   f'{(h, k, d, b)}')
+            dev_us = launch_device_us(lambda: launch(*args))
             ms = cuda_ms(lambda: launch(*args), 200)
             call_ms = cuda_ms(kern, 200)
             plain_ms = cuda_ms(plain, 10)
@@ -796,13 +787,17 @@ def phase_head_wide(dev):
             _, busy, _, _ = profile_device(
                 lambda: [narrow() for _ in range(50)])
             library_ms = 1e3 * busy / 50
-        bound, by = wide_bound_ms(b, h, k, d)
+        # the float32 bound (the table's) and the bound of the work as the
+        # kernel does it: three TF32 products a float32 product
+        f32_us, f32_by, tf32_us, tf32_by = wide_bounds_us(h, k, d, b)
         row = dict(shape=[h, k, d, b], max_abs_err=max(
             float((a - r).abs().max()) for a, r in zip(got, ref)),
-            rel_err=errs, grad_err_share_of_tol=max(shares), ms=ms,
-            call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
-            library_call_ms=library_call_ms,
-            bound_ms=bound, bound_by=by)
+            rel_err=errs, grad_err_share_of_tol=max(shares),
+            cluster=lib.gmvae_wide_head_cluster(b, h, k, d),
+            device_us=dev_us, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+            library_ms=library_ms, library_call_ms=library_call_ms,
+            bound_ms=1e-3 * f32_us, bound_by=f32_by,
+            bound_tf32_ms=1e-3 * tf32_us, bound_tf32_by=tf32_by)
         rows.append(row)
         log(f'[head_wide] {json.dumps(row)}')
         if (h, k, d, b) == WIDE_MAIN:
@@ -1041,9 +1036,12 @@ def main():
         'replaces': 'tools/bench_head_boundary.py:60',
         'launches': boundary_launches['wide_head_fwd'],
         'max_abs_err': wide_row['max_abs_err'],
+        'device_us': wide_row['device_us'],
         'ms': wide_row['ms'], 'call_ms': wide_row['call_ms'],
         'plain_ms': wide_row['plain_ms'],
         'bound_ms': wide_row['bound_ms'], 'bound_by': wide_row['bound_by'],
+        'bound_tf32_ms': wide_row['bound_tf32_ms'],
+        'bound_tf32_by': wide_row['bound_tf32_by'],
         'library_ms': wide_row['library_ms'],
         'library': 'three torch.matmul + the head kernel (the narrow '
                    'path), its kernels\' device time',

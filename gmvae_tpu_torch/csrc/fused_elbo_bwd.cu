@@ -227,14 +227,6 @@ __device__ __forceinline__ void stripe_sum(const Segment& g, int n, int cols,
   }
 }
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
 __global__ void __launch_bounds__(32 * kBwdWarps)
     fused_elbo_bwd_kernel(const HeadIn in, const Cotangents ct,
                           const Grads out, const Plan p) {

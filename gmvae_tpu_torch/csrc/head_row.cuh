@@ -206,6 +206,16 @@ __device__ __forceinline__ void store_row(float* dst, const float* src,
   }
 }
 
+// a thread-block cluster's barrier in two halves (release on arrive,
+// acquire on wait), so work can run between them
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

@@ -53,7 +53,8 @@ _SIGNATURES = {
     'gmvae_fused_elbo_bwd_scratch': (ctypes.c_size_t, [_I, _I, _I]),
     'gmvae_wide_head_fwd': (_I, [_P] * 14 + [_I] * 4 + [_U, _U,
                                                         ctypes.c_float, _P]),
-    'gmvae_wide_head_smem': (ctypes.c_size_t, [_I, _I, _I]),
+    'gmvae_wide_head_smem': (ctypes.c_size_t, [_I] * 4),
+    'gmvae_wide_head_cluster': (_I, [_I] * 4),
     'gmvae_threefry_grid': (_I, [_U, _U, _P, _P, _P, _P, _I, _P]),
     'gmvae_cuda_error_string': (ctypes.c_char_p, [_I]),
 }

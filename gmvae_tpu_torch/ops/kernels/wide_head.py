@@ -13,12 +13,15 @@ as the reference's ``_wide_bwd``, rematerializes them with three
 (``fused_elbo_bwd``) on them with the same threefry key, adds the direct
 cotangent of the ``k_logits`` output, and chains the matmuls' VJPs.
 
-The CUDA kernel (``gmvae_tpu_torch/csrc/wide_head_fwd.cu``) computes the
-projections in float32 FMA and the head in ``csrc/head_row.cuh``'s row
-functions; what bounds it and its design are in its source note. Soft y
-and in-kernel threefry noise only, as the TPU kernel: the noise of rows
-0..B-1 over the narrow kernel's counters, so both boundaries draw the same
-noise for the same key.
+The CUDA kernel (``gmvae_tpu_torch/csrc/wide_head_fwd.cu``) runs a tile of
+16 rows as a thread-block cluster whose blocks split the projections'
+columns; it computes them float32-exact on the tensor cores (3xTF32
+``mma.sync``), keeps them in shared memory, gathers each row's through
+distributed shared memory into one block, and runs the head there with
+``csrc/head_row.cuh``'s row functions, one row a block; what bounds it and
+its design are in its source note. Soft y and in-kernel threefry noise
+only, as the TPU kernel: the noise of rows 0..B-1 over the narrow kernel's
+counters, so both boundaries draw the same noise for the same key.
 
 Weights keep the reference's ``[H, out]`` layout and the prior means and
 logvars its flat ``[K*D]`` one. The key is the ``(k0, k1)`` uint32 pair
@@ -146,7 +149,7 @@ def launch_args(key_u32, tau, feats, wk, bk, wm, bm, wlv, blv, pi_logits,
                          'blv': (blv, (n,)), 'pi_logits': (pi_logits, (k,)),
                          'prior_means': (p_means, (n,)),
                          'prior_logvars': (p_logvars, (n,))}, dev)
-    smem = _build.library().gmvae_wide_head_smem(h, k, d)
+    smem = _build.library().gmvae_wide_head_smem(b, h, k, d)
     if smem > SMEM_LIMIT:
         raise ValueError(f'wide_head: H={h}, K={k}, D={d} needs {smem} bytes '
                          f'of shared memory a block, over {SMEM_LIMIT}')

@@ -371,8 +371,10 @@ def test_train_steps_through_kernels_match_plain_head(dev):
 # the wide-boundary head (csrc/wide_head_fwd.cu) and the conv stacks
 # ---------------------------------------------------------------------------
 
+# cifar_head at B=1, 17, 129: a lone row, and ragged last row tiles of 16
 WIDE_SHAPES = [(512, 10, 10, 128), (512, 20, 128, 128), (512, 10, 10, 37),
-               (64, 3, 40, 9), (30, 4, 6, 5)]   # H=30: the h % 4 tail
+               (64, 3, 40, 9), (30, 4, 6, 5),   # H=30: the h % 4 tail
+               (512, 20, 128, 1), (512, 20, 128, 17), (512, 20, 128, 129)]
 
 
 def _wide_inputs(h, k, d, b, dev, seed=0):
@@ -407,6 +409,20 @@ def test_wide_kernel_matches_plain(dev, shape):
         else:
             rtol = 1e-4 if name == 'scal' else 1e-5
             assert float((err / b_.abs().clamp_min(1.0)).max()) <= rtol, name
+
+
+def test_wide_kernel_reruns_bit_identical(dev):
+    """50 launches at cifar_head give the same bits: each projection is a
+    sum over H in a fixed order inside one block, no atomics."""
+    h, k, d, b = 512, 20, 128, 128
+    ins = _wide_inputs(h, k, d, b, dev, seed=3)
+    with torch.no_grad():
+        first = wide_head.wide_head((5, 6), 0.8, *ins, k, d)
+        for _ in range(49):
+            again = wide_head.wide_head((5, 6), 0.8, *ins, k, d)
+            for name, a, a2 in zip(('z', 'y', 'scal', 'k_logits'), first,
+                                   again):
+                assert torch.equal(a, a2), name
 
 
 @pytest.mark.parametrize('shape', [(512, 10, 10, 128), (512, 20, 128, 128),

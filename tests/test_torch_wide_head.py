@@ -73,7 +73,12 @@ def _reference(tool, ins, cts, k, d):
     return [np.asarray(o) for o in out], [np.asarray(g) for g in grads]
 
 
-SHAPES = [(32, 4, 6, 8), (32, 3, 128, 8), (64, 10, 10, 37)]
+# (H, K, D, B). The last three sit at the edges of the CUDA kernel's
+# tiling, whose plain version this is on the CPU: B not a multiple of its
+# 16-row tile, K + 2N not a multiple of the mma's n = 8 nor of the column
+# stripes of a 16-block cluster, H not a multiple of the k-step of 8.
+SHAPES = [(32, 4, 6, 8), (32, 3, 128, 8), (64, 10, 10, 37), (40, 3, 7, 19),
+          (24, 5, 9, 17), (36, 2, 5, 3)]
 
 
 @pytest.mark.parametrize('h,k,d,b', SHAPES)
