@@ -59,6 +59,7 @@ from torch.export.passes import move_to_device_pass
 from gmvae_tpu_torch import nets
 from gmvae_tpu_torch.parallel import mesh
 from gmvae_tpu_torch.training import resolve_device
+from gmvae_tpu_torch.utils.profiling import span
 
 VERBS = ('assign', 'probs', 'latent', 'reconstruct')
 # the devices an artifact may list (``export_verb``'s ``platforms``)
@@ -296,25 +297,29 @@ class Program:
         the size it was exported for, each rank on its contiguous slice of
         the same ``x``; the slices are gathered, so every rank returns the
         whole batch's answer."""
-        x = np.ascontiguousarray(x, np.float32)
-        dp_batch = self.layout['dp_batch']
-        if dp_batch is not None:
-            rank, world = mesh.world()
-            if world != self.layout['world_size'] or x.shape[0] != dp_batch:
-                raise ValueError(
-                    f'a data-parallel artifact for '
-                    f'{self.layout["world_size"]} rank(s) and batch '
-                    f'{dp_batch}, called with a group of {world} and a '
-                    f'batch of {x.shape[0]}')
-            b = dp_batch // world
-            x = x[rank * b:(rank + 1) * b]
-        with torch.no_grad():
-            out = self.module(torch.from_numpy(x).to(self.device))
-        outs = out if isinstance(out, (tuple, list)) else (out,)
-        if dp_batch is not None:
-            outs = [mesh.all_gather_rows(o) for o in outs]
-        outs = tuple(o.cpu().numpy() for o in outs)
-        return outs if isinstance(out, (tuple, list)) else outs[0]
+        with span('gmvae.serve.call'):
+            x = np.ascontiguousarray(x, np.float32)
+            dp_batch = self.layout['dp_batch']
+            if dp_batch is not None:
+                rank, world = mesh.world()
+                if (world != self.layout['world_size']
+                        or x.shape[0] != dp_batch):
+                    raise ValueError(
+                        f'a data-parallel artifact for '
+                        f'{self.layout["world_size"]} rank(s) and batch '
+                        f'{dp_batch}, called with a group of {world} and a '
+                        f'batch of {x.shape[0]}')
+                b = dp_batch // world
+                x = x[rank * b:(rank + 1) * b]
+            with torch.no_grad():
+                x = torch.from_numpy(x).to(self.device)
+                with span('gmvae.serve.run'):
+                    out = self.module(x)
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            if dp_batch is not None:
+                outs = [mesh.all_gather_rows(o) for o in outs]
+            outs = tuple(o.cpu().numpy() for o in outs)
+            return outs if isinstance(out, (tuple, list)) else outs[0]
 
 
 def load_program(blob_or_path, device=None) -> Program:

@@ -28,8 +28,8 @@ Accounting, the reference's three event kinds as a CUDA trace has them:
   those on other streams that overlap no compute-stream event; grouped
   by ``GROUP_RULES``. Each row's provenance is the aten op that launched
   it, found through the trace's correlation ids (the ``correlation`` arg,
-  else the ``ac2g`` flow events), after the training step's spans around
-  it (``gmvae.data_gather``, ``gmvae.optimizer``: ``utils/profiling.span``).
+  else the ``ac2g`` flow events), after the program's spans around it
+  (``gmvae.*``: ``utils/profiling.span`` lists them).
 - **async**: events on other streams that overlap compute-stream work
   (the host-stream copies of the next chunk's batches): reported as
   ``async_spans``, never summed into the groups.
@@ -124,8 +124,8 @@ def _correlation(ev: dict, flows: Dict[tuple, int]):
 
 def _provenance(events: List[dict], flows: Dict[tuple, int]
                 ) -> Dict[int, str]:
-    """{correlation id: provenance} for every runtime launch: the training
-    step's spans around it and the innermost aten op, joined by '/'."""
+    """{correlation id: provenance} for every runtime launch: the
+    program's spans around it and the innermost aten op, joined by '/'."""
     by_thread: Dict[tuple, List[dict]] = {}
     for ev in events:
         if ev.get('ph') != 'X':

@@ -215,7 +215,8 @@ def make_optimizer(cfg: Config) -> Optimizer:
 
     def update(g, state, sizes):
         if clip is not None:
-            g = clip(g, sizes)
+            with span('gmvae.clip'):
+                g = clip(g, sizes)
         u, state = adam.update(g, state)
         return u * -lr, state
 
@@ -669,10 +670,11 @@ class Trainer:
         dev_rows, host_rows = [], []
         step = int(state.step)
         for i in range(n_steps):
-            with span('gmvae.data_gather'):
-                batch = batch_at(i)
-            opt_state, m_dev, m_host = self.train_step(
-                opt_state, batch, self.base_key, step + i)
+            with span('gmvae.step'):
+                with span('gmvae.data_gather'):
+                    batch = batch_at(i)
+                opt_state, m_dev, m_host = self.train_step(
+                    opt_state, batch, self.base_key, step + i)
             dev_rows.append(m_dev)
             host_rows.append(m_host)
         params = {k: v.detach().clone()

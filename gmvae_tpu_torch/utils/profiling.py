@@ -1,5 +1,5 @@
 """Device time by kernel, from ``torch.profiler``'s trace of the card;
-the training step's named spans."""
+the program's named spans at its layer boundaries."""
 
 from __future__ import annotations
 
@@ -24,15 +24,38 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+# what ``span`` hands back while the profiler is off: one object, entered
+# and left any number of times
+_OFF = contextlib.nullcontext()
+
+
 def span(name: str):
     """A ``record_function`` span named ``name`` while the profiler records,
-    else nothing (about a microsecond a call). The training step marks
-    its data gather and its optimizer with these (``gmvae.data_gather``,
-    ``gmvae.optimizer``); ``tools/profile_attr.py`` groups the kernels they
-    launch by them."""
+    else one shared null context (one flag check a call). Its ranges land
+    in the profiler's trace beside the device operations they launch, on
+    the same clock; ``portbench/core/trace.py`` joins the two, and
+    ``tools/profile_attr.py`` groups the kernels by them. The program's
+    spans, and the benchmark's metric that reads each
+    (``portbench/metrics/<metric>.py``):
+
+    - ``gmvae.step`` (``Trainer.run_chunk``, one step: the gather and
+      ``train_step``): ``host_copies_per_step``, and the steps every
+      ``*_per_step`` metric below divides by;
+    - ``gmvae.data_gather`` (the gather, and ``train_step``'s
+      ``preprocess_batch``): ``data_gather_ms_per_step``;
+    - ``gmvae.optimizer`` (``train_step``: clip, Adam, the ``-lr`` scale
+      and the update of the parameters): ``optimizer_ms_per_step``,
+      ``adam_ms_per_step``;
+    - ``gmvae.clip`` (``make_optimizer``'s clip, inside
+      ``gmvae.optimizer``): ``clip_ms_per_step``;
+    - ``gmvae.serve.call`` (``serving.Program.__call__``, its whole body):
+      ``serve_idle_ms_per_req``, and the requests
+      ``serve_model_ms_per_req`` divides by;
+    - ``gmvae.serve.run`` (inside it, the exported graph's module):
+      ``serve_model_ms_per_req``."""
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
+    return _OFF
 
 
 def profile_device(fn: Callable[[], object]
