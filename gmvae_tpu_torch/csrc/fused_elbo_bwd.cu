@@ -29,12 +29,10 @@
 // function moves ~230 KB (0.07 us at 3.35 TB/s), so the chain of dependent
 // phases through a row sets the time in practice.
 //
-// Design. One launch; one block per row, in thread-block clusters of C
-// blocks, the grid padded to a multiple of C (padding blocks compute
-// nothing and take part in the cluster barriers). C is the largest of
-// min(8, B) and its halvings at which every cluster is resident at once
-// (bwd_launch): a cluster that waited for a second wave would double the
-// launch's time.
+// Design. One launch of min(B, P) blocks, P the blocks the card holds at
+// once at (K, D) (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the
+// SMs): a cooperative launch, so every block is resident at once. Block i
+// takes rows i, i + P, i + 2P, ... in order (one row where B <= P).
 // - The row's q tiles and the prior are staged in shared memory once, as
 //   in the forward (head_row.cuh:stage_row). The VJP's passes over (k, d)
 //   after row_forward read shared memory: the densities' pull on z with the
@@ -45,27 +43,24 @@
 // - The K-vector steps run on separate warps: the two LSE weights (D/E) on
 //   warps 0 and 1, the latter also d_pi's row term, beside the per-d
 //   conditionals (B/C) on every thread.
-// - The batch sum of the prior gradients, in one launch and a fixed order,
-//   without float atomics. Each block keeps its row's partial (d_pi's K
-//   terms padded to 4, then d_pm's and d_plv's K*D each) in shared memory
-//   and arrives at a split cluster barrier, whose wait comes after passes
-//   H, I and J/K, so the blocks' skew hides behind them. Then each block
-//   of cluster rank r reads its stripe of columns from the cluster's
-//   blocks through distributed shared memory and sums it in rank order
-//   into the cluster's row of the scratch [clusters, pad4(K) + 2*K*D]. The
-//   block of rank r owns the same stripe in every cluster: after a
-//   __threadfence it takes its rank's ticket (atomicAdd on an unsigned,
-//   not a float sum), and the last block of the rank sums the stripe over
-//   the clusters in cluster order and resets the ticket to 0, so a call
-//   leaves no state behind (d_plv's terms are masked to the clamp band in
-//   pass F/G, before any sum). So
-//   d_prior[j] = sum over clusters c in order of (sum over ranks q in
-//   order of row c*C + q's term): bit-identical run to run, though not to
-//   a sum in row order. Where the partial does not fit beside the tiles,
-//   pass F/G walks K in chunks of kc components, each summed across the
-//   cluster in turn.
+// - The batch sum of the prior gradients, in a fixed order and without
+//   float atomics, spread over every block. A row's partial (d_pi's K
+//   terms padded to 4, then d_pm's and d_plv's K*D each) is built in shared
+//   memory; where it does not fit beside the tiles, pass F/G walks K in
+//   chunks of kc components (d_plv's terms are masked to the clamp band
+//   there, before any sum). Each chunk is added into the block's own row of
+//   the scratch [blocks, pad4(K) + 2*K*D] (the thread that owns a column
+//   reads, adds and writes it; the block's first row stores). After a grid
+//   barrier on ticket 0, every block sums its own stripe of the columns over
+//   the scratch rows in block order, its threads split into row slices
+//   whose sums are added in a fixed tree; the last block past ticket 1
+//   resets both tickets, so a call leaves no state behind. So d_prior[j] =
+//   the tree over slices s of (sum over blocks i = s, s + S, ... of (sum
+//   over block i's rows in order of the row's term)).
+//
+// The order is fixed by the shape and the card (P is cached by device and
+// (K, D)): bit-identical run to run, though not to a sum in row order.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -76,16 +71,11 @@
 
 #include "head_row.cuh"
 
-namespace cg = cooperative_groups;
-
 namespace {
 
 using namespace gmvae;
 
-constexpr int kMaxCluster = 8;  // blocks a cluster (the portable limit)
-// warps a block at most: small enough blocks that clusters of 8 stay
-// resident (see bwd_launch)
-constexpr int kBwdWarps = 8;
+constexpr int kBwdWarps = 8;  // warps a block at most
 
 struct Cotangents {
   const float* cs;  // [B, 8]
@@ -100,8 +90,8 @@ struct Grads {
   float* d_pi;       // [K]
   float* d_pm;       // [K, D]
   float* d_plv;      // [K, D]
-  float* scratch;    // [clusters, pad4(K) + 2*K*D]: a partial a cluster
-  unsigned* ticket;  // [kMaxCluster] blocks of each rank done; 0 between
+  float* scratch;    // [blocks, pad4(K) + 2*K*D]: a block's partial sum
+  unsigned* ticket;  // [2]: [0] blocks arrived, [1] blocks done; 0 between
                      // calls
 };
 
@@ -125,11 +115,18 @@ __device__ __forceinline__ float4 operator+(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
-// A segment of the prior-gradient partial: n floats at `src` in each
-// block's shared memory, at column `off` of each scratch row. The block of
-// cluster rank r owns the segment's r-th of C contiguous stripes, in float4
-// quads where every cluster can take them (seg_vec), else in floats: the
-// same columns in every cluster.
+__device__ __forceinline__ float shfl_down(float v, int h, int width) {
+  return __shfl_down_sync(kFull, v, h, width);
+}
+
+__device__ __forceinline__ float4 shfl_down(float4 v, int h, int width) {
+  return make_float4(shfl_down(v.x, h, width), shfl_down(v.y, h, width),
+                     shfl_down(v.z, h, width), shfl_down(v.w, h, width));
+}
+
+// A segment of the prior-gradient partial: n floats at `src` in shared
+// memory, at column `off` of each scratch row; moved in float4 quads where
+// every row can take them (seg_vec), else in floats.
 struct Segment {
   float* src;
   int n, off;
@@ -141,112 +138,131 @@ __device__ __forceinline__ bool seg_vec(const Segment& g, int cols,
          aligned16(scratch);
 }
 
-// rank r's stripe [lo, hi) of n items
-struct Stripe {
-  int lo, hi;
-};
-
-__device__ __forceinline__ Stripe stripe(int n, int rank, int C) {
-  const int per = (n + C - 1) / C;
-  return Stripe{min(n, rank * per), min(n, (rank + 1) * per)};
-}
-
-// The cluster's sum of the segment over its first `ranks` blocks, in rank
-// order, into this cluster's scratch row: this block's stripe. A column's
-// loads through distributed shared memory are issued together, then added.
+// The add of a segment of this row's partial into the block's scratch row
+// `row` (the block's first row stores): each thread reads, adds and writes
+// the columns it owns, the same ones every row.
 template <typename V>
-__device__ __forceinline__ void cluster_sum_as(cg::cluster_group& cl,
-                                               const Segment& g, int n,
-                                               int ranks, V* dst) {
-  const Stripe sr = stripe(n, static_cast<int>(cl.block_rank()),
-                           static_cast<int>(cl.num_blocks()));
-  const V* from[kMaxCluster];
-#pragma unroll
-  for (int q = 0; q < kMaxCluster; ++q)
-    from[q] = reinterpret_cast<const V*>(
-        cl.map_shared_rank(g.src, q < ranks ? q : 0));
-  for (int j = sr.lo + threadIdx.x; j < sr.hi; j += blockDim.x) {
-    V v[kMaxCluster];
-#pragma unroll
-    for (int q = 0; q < kMaxCluster; ++q)
-      if (q < ranks) v[q] = from[q][j];
-    V s = v[0];
-#pragma unroll
-    for (int q = 1; q < kMaxCluster; ++q)
-      if (q < ranks) s = s + v[q];
-    dst[j] = s;
+__device__ __forceinline__ void accumulate_as(const V* src, V* dst, int n,
+                                              bool first) {
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const V v = src[j];
+    __stcg(dst + j, first ? v : __ldcg(dst + j) + v);
   }
 }
 
-__device__ __forceinline__ void cluster_sum(cg::cluster_group& cl,
-                                            const Segment& g, int ranks,
-                                            float* row, int cols,
-                                            const float* scratch) {
+__device__ __forceinline__ void accumulate(const Segment& g, float* row,
+                                           int cols, const float* scratch,
+                                           bool first) {
   if (seg_vec(g, cols, scratch))
-    cluster_sum_as(cl, g, g.n / 4, ranks,
-                   reinterpret_cast<float4*>(row + g.off));
+    accumulate_as(reinterpret_cast<const float4*>(g.src),
+                  reinterpret_cast<float4*>(row + g.off), g.n / 4, first);
   else
-    cluster_sum_as(cl, g, g.n, ranks, row + g.off);
+    accumulate_as(static_cast<const float*>(g.src), row + g.off, g.n, first);
 }
 
-// the sum over the n cluster rows of the scratch's column (or column quad)
-// j, in row order, loads issued kRowBatch at a time
+// Every block of the grid (all resident: a cooperative launch) waits here
+// until all have arrived; their writes before it are visible after it.
+// `count` goes from 0 to the grid's blocks.
+__device__ __forceinline__ void grid_barrier(unsigned* count) {
+  __syncthreads();
+  if (threadIdx.x == 0) {  // the fence is cumulative: the block's writes
+    __threadfence();
+    atomicAdd(count, 1u);
+    unsigned seen = 0;
+    while (true) {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(seen)
+                   : "l"(count)
+                   : "memory");
+      if (seen >= gridDim.x) break;
+      __nanosleep(32);
+    }
+  }
+  __syncthreads();
+}
+
+// the sum of column (or column quad) j of the scratch over its rows s,
+// s + S, ... below n, in order, loads issued kRowBatch at a time
 constexpr int kRowBatch = 8;
 
 template <typename V>
-__device__ __forceinline__ V scratch_sum(const V* scratch, int n, int cols,
-                                         int j) {
-  V s;
-  for (int c0 = 0; c0 < n; c0 += kRowBatch) {
+__device__ __forceinline__ V slice_sum(const V* scratch, int s, int S, int n,
+                                       int cols, int j) {
+  V acc{};  // replaced by the first row's value
+  for (int c0 = s; c0 < n; c0 += kRowBatch * S) {
     V v[kRowBatch];
 #pragma unroll
     for (int q = 0; q < kRowBatch; ++q)
-      if (c0 + q < n) v[q] = __ldcg(scratch + static_cast<size_t>(c0 + q) * cols + j);
+      if (c0 + q * S < n)
+        v[q] = __ldcg(scratch + static_cast<size_t>(c0 + q * S) * cols + j);
 #pragma unroll
     for (int q = 0; q < kRowBatch; ++q)
-      if (c0 + q < n) s = (c0 + q == 0) ? v[q] : s + v[q];
+      if (c0 + q * S < n) acc = (c0 + q * S == s) ? v[q] : acc + v[q];
   }
-  return s;
+  return acc;
 }
 
-// The batch sum of this block's stripe of a segment: the scratch rows of
-// the n clusters in cluster order, each column to emit(column, sum).
-template <typename Emit>
-__device__ __forceinline__ void stripe_sum(const Segment& g, int n, int cols,
-                                           const float* scratch, int rank,
-                                           int C, Emit emit) {
-  if (seg_vec(g, cols, scratch)) {
-    const float4* s4 = reinterpret_cast<const float4*>(scratch + g.off);
-    const Stripe sr = stripe(g.n / 4, rank, C);
-    for (int j = sr.lo + threadIdx.x; j < sr.hi; j += blockDim.x) {
-      const float4 s = scratch_sum(s4, n, cols / 4, j);
-      emit(g.off + 4 * j, s.x);
-      emit(g.off + 4 * j + 1, s.y);
-      emit(g.off + 4 * j + 2, s.z);
-      emit(g.off + 4 * j + 3, s.w);
-    }
-  } else {
-    const Stripe sr = stripe(g.n, rank, C);
-    for (int j = sr.lo + threadIdx.x; j < sr.hi; j += blockDim.x)
-      emit(g.off + j, scratch_sum(scratch + g.off, n, cols, j));
+// The batch sum of the block's stripe of `cols` columns of V over the n
+// scratch rows, each column to emit(column, sum). The block's threads take
+// S consecutive lanes a column (S a power of two, at most 32, n and the
+// threads over the stripe's width): lane s sums rows s, s + S, ... in
+// order, and the lanes' sums meet in a fixed tree of shuffles.
+template <typename V, typename Emit>
+__device__ __forceinline__ void stripe_sum_as(const V* scratch, int n,
+                                              int cols, int lo, int hi,
+                                              Emit emit) {
+  const int w = hi - lo;
+  const int T = blockDim.x;
+  int S = 1;
+  while (S < 32 && 2 * S * w <= T && 2 * S <= n) S *= 2;
+  const int s = threadIdx.x % S;
+  for (int j0 = lo; j0 < hi; j0 += T / S) {  // the same turns in every lane
+    const int j = j0 + static_cast<int>(threadIdx.x) / S;
+    V v{};
+    if (j < hi) v = slice_sum(scratch, s, S, n, cols, j);
+    for (int h = S / 2; h > 0; h /= 2) v = v + shfl_down(v, h, S);
+    if (s == 0 && j < hi) emit(j, v);
   }
 }
 
-// two blocks an SM at most 128 registers a thread: at one block an SM
-// (the float64 recomputation takes ~160 registers unbounded) the clusters
-// of 8 of a 128-row launch are not all resident, bwd_launch falls back to
-// clusters of 2, and the longer cross-cluster sum cost 30-70% at
-// (128,10,64), (128,10,128) and (128,20,128) (PERF.md §6)
+// The block's stripe of the partial's columns (its share of them, in
+// float4 quads where the scratch rows take them, else in floats), summed
+// over the n scratch rows into d_pi, d_pm and d_plv.
+__device__ __forceinline__ void stripe_sum(const Grads& out, int n, int K,
+                                           int D) {
+  const int kp = pad4(K), kd = K * D, cols = partial_floats(K, D);
+  auto emit = [&](int j, float v) {
+    if (j < K)
+      out.d_pi[j] = v;
+    else if (j >= kp && j < kp + kd)
+      out.d_pm[j - kp] = v;
+    else if (j >= kp + kd)
+      out.d_plv[j - kp - kd] = v;
+  };
+  const bool vec = (cols & 3) == 0 && aligned16(out.scratch);
+  const int items = vec ? cols / 4 : cols;
+  const int blocks = gridDim.x;
+  const int per = (items + blocks - 1) / blocks;
+  const int lo = min(items, static_cast<int>(blockIdx.x) * per);
+  const int hi = min(items, lo + per);
+  if (vec)
+    stripe_sum_as(reinterpret_cast<const float4*>(out.scratch), n, items, lo,
+                  hi, [&](int j, float4 v) {
+                    emit(4 * j, v.x);
+                    emit(4 * j + 1, v.y);
+                    emit(4 * j + 2, v.z);
+                    emit(4 * j + 3, v.w);
+                  });
+  else
+    stripe_sum_as(out.scratch, n, items, lo, hi, emit);
+}
+
+// two blocks an SM at most 128 registers a thread, so two rows share an SM
+// where shared memory allows (every 128-row config's shape): P is 264 there
 __global__ void __launch_bounds__(32 * kBwdWarps, 2)
     fused_elbo_bwd_kernel(const HeadIn in, const Cotangents ct,
                           const Grads out, const Plan p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = static_cast<int>(cluster.num_blocks());
-  const int cid = blockIdx.x / C;
-  const int ranks = min(C, p.B - cid * C);  // rows of this cluster
-  const int row = blockIdx.x;
-  const bool live = row < p.B;
   const int K = in.K, D = in.D, L = in.L;
   const int t = threadIdx.x;
   const int T = blockDim.x;
@@ -261,7 +277,6 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 2)
   const int cols = partial_floats(K, D);
 
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
-  int* last_of_rank = reinterpret_cast<int*>(smem_raw + 8);
   float* tiles = reinterpret_cast<float*>(smem_raw + kHeaderBytes);
   float* pi_part =
       tiles + static_cast<size_t>(2 * (p.stage_q + p.stage_p)) * kd;
@@ -280,9 +295,7 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 2)
   float* dpl = dpmean + D; // [D]
   float* fq = st.part;                // [G][D] pass F/G's partials, q
   float* fp = st.part + gd;           // [G][D] and the prior
-  float* scratch = out.scratch + static_cast<size_t>(cid) * cols;
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int n_clusters = gridDim.x / C;
+  float* scratch = out.scratch + static_cast<size_t>(blockIdx.x) * cols;
   // the partial's segments: d_pi's terms, then a chunk's d_pm and d_plv
   const Segment pi_seg{pi_part, kp, 0};
   auto pm_seg = [&](int k0, int k1) {
@@ -291,22 +304,39 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 2)
   auto plv_seg = [&](int k0, int k1) {
     return Segment{plv_part, (k1 - k0) * D, kp + kd + k0 * D};
   };
+  // with one chunk the shared partial is laid out as a scratch row: one
+  // segment
+  const Segment row_seg{pi_part, cols, 0};
+  const int chunks = (K + p.kc - 1) / p.kc;
+  const int k_last = (chunks - 1) * p.kc;  // the last chunk's first k
+  int staged_mode = kStageNone;
 
-  RowIn r{};
-  float c_lpm = 0.f, c_lqm = 0.f, c_lpc = 0.f, c_lqc = 0.f, c_klc = 0.f;
-  if (live) {
-    r = row_in(in, row);
+  // rows blockIdx.x, + gridDim.x, ... in order (the grid is at most B)
+  for (int row = blockIdx.x; row < p.B; row += gridDim.x) {
+    const bool first = row == static_cast<int>(blockIdx.x);
+    if (!first) {
+      // the last row's bulk store reads the tiles until it is done, and
+      // this row's copies rewrite them through the async proxy
+      if (t == 0) {
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        if (staged_mode == kStageBulk)
+          asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(
+                           smem_addr(bar))
+                       : "memory");
+      }
+      __syncthreads();
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    RowIn r = row_in(in, row);
     const Staging staged = stage_row(tiles, kd, p.stage_q, p.stage_p, r, bar);
+    staged_mode = staged.mode;
     row_forward(in, r, st, row, staged, nullptr, nullptr);
 
     const float* cs = ct.cs + static_cast<size_t>(row) * 8;
-    c_lpm = cs[0];
-    c_lqm = cs[1];
-    c_lpc = cs[2];
-    c_lqc = cs[3];
-    c_klc = cs[4];
+    const float c_lpm = cs[0], c_lqm = cs[1], c_lpc = cs[2], c_lqc = cs[3],
+                c_klc = cs[4];
 
-    // ---- B/C. the prior's mixing and the y-interpolated conditionals ------
+    // ---- B/C. the prior's mixing and the y-interpolated conditionals ----
     // z - mean (= e^{lv/2} eps) and z - pmean from the double z and mean
     for (int d = t; d < D; d += T) {
       const double z = st.zs[d];
@@ -324,8 +354,8 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 2)
       dpl[d] = c_lpc * 0.5f * (zp * r_p - 1.f);
     }
     for (size_t i = t; i < 2 * gd; i += T) st.part[i] = 0.f;
-    // ---- D/E. the LSE weights in double (warps 0 and 1), rounded to float
-    // once; A. d_pi's row term ---------------------------------------------
+    // ---- D/E. the LSE weights in double (warps 0 and 1), rounded to
+    // float once; A. d_pi's row term --------------------------------------
     if (warp == 0) {
       double m = -INFINITY;
       for (int k = lane; k < K; k += 32)
@@ -337,7 +367,8 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 2)
       s = warp_sum(s);
       float saq = 0.f;
       for (int k = lane; k < K; k += 32) {
-        const double w = exp(static_cast<double>(st.lq[k]) + st.cq[k] - m) / s;
+        const double w =
+            exp(static_cast<double>(st.lq[k]) + st.cq[k] - m) / s;
         aq[k] = c_lqm * static_cast<float>(w);
         saq += aq[k];
       }
@@ -357,15 +388,13 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 2)
       }
     }
     __syncthreads();
-  }
 
-  // ---- F/G. the densities' pull on z (per-group partials), the prior
-  // gradients and the prior's terms of d_y, per (k, d), in chunks of kc
-  // components; every chunk but the last summed across the cluster here
-  const int chunks = (K + p.kc - 1) / p.kc;
-  for (int c = 0; c < chunks; ++c) {
-    const int k0 = c * p.kc, k1 = min(K, k0 + p.kc);
-    if (live) {
+    // ---- F/G. the densities' pull on z (per-group partials), the prior
+    // gradients and the prior's terms of d_y, per (k, d), in chunks of kc
+    // components; every chunk but the last added into the block's scratch
+    // row here
+    for (int c = 0; c < chunks; ++c) {
+      const int k0 = c * p.kc, k1 = min(K, k0 + p.kc);
       // the loop counts are the same for every thread (see row_forward)
       for (int kb = k0; kb < k1; kb += G) {
         const int k = kb + g;
@@ -374,7 +403,8 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 2)
           const float y = st.ys[k];
           const float a_q = aq[k], a_p = ap[k];
           float* __restrict__ pmc = pm_part + static_cast<size_t>(k - k0) * D;
-          float* __restrict__ plc = plv_part + static_cast<size_t>(k - k0) * D;
+          float* __restrict__ plc =
+              plv_part + static_cast<size_t>(k - k0) * D;
           float* __restrict__ fqg = fq + static_cast<size_t>(g) * D;
           float* __restrict__ fpg = fp + static_cast<size_t>(g) * D;
           for (int d = l; d < D; d += L) {
@@ -389,8 +419,8 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 2)
             fqg[d] += a_q * ((z - r.qm[i]) * expf(-lvq));
             fpg[d] += a_p * dpe;
             pmc[d] = y * dpmean[d] + a_p * dpe;
-            // masked to the clamp band here: the batch sum of masked terms
-            // is the masked batch sum
+            // masked to the clamp band here: the batch sum of masked
+            // terms is the masked batch sum
             plc[d] = (y * dpl[d] + a_p * 0.5f * (dp * dpe - 1.f)) *
                      band_mask(plv_in);
             acc += pm * dpmean[d] + lvp * dpl[d];
@@ -399,22 +429,15 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 2)
         acc = group_sum(acc, L);
         if (l == 0 && k < k1) dyp[k] = acc;
       }
+      if (c + 1 < chunks) {
+        __syncthreads();
+        accumulate(pm_seg(k0, k1), scratch, cols, out.scratch, first);
+        accumulate(plv_seg(k0, k1), scratch, cols, out.scratch, first);
+        __syncthreads();  // the chunk buffers are free again
+      }
     }
-    if (c + 1 < chunks) {
-      cluster.sync();
-      cluster_sum(cluster, pm_seg(k0, k1), ranks, scratch, cols, out.scratch);
-      cluster_sum(cluster, plv_seg(k0, k1), ranks, scratch, cols,
-                  out.scratch);
-      cluster.sync();  // the chunk buffers are free again
-    }
-  }
-
-  // the last chunk's and d_pi's terms are in shared memory: the cluster
-  // may read them once every block has arrived (a split barrier, so the
-  // blocks' skew hides behind H, I, J/K)
-  cluster_arrive();
-  if (live) {
     __syncthreads();
+
     // ---- H. d_z complete; z = mean + e^{lv/2} eps -------------------------
     for (int d = t; d < D; d += T) {
       float sq = 0.f, sp = 0.f;
@@ -426,8 +449,8 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 2)
       const float dzd = dz[d] - sq - sp;
       dz[d] = dzd;
       dmean[d] += dzd;
-      dlv[d] += dzd * 0.5f * expf(0.5f * static_cast<float>(st.mix[D + d])) *
-                st.es[d];
+      dlv[d] += dzd * 0.5f *
+                expf(0.5f * static_cast<float>(st.mix[D + d])) * st.es[d];
     }
     __syncthreads();
 
@@ -470,14 +493,14 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 2)
           aligned16(out.d_qlv + row_kd)) {
         if (t == 0) {
           asm volatile(
-              "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-              ::"l"(gmem_addr(out.d_qm + row_kd)), "r"(smem_addr(dqm)),
-              "r"(bytes)
+              "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], "
+              "%2;\n" ::"l"(gmem_addr(out.d_qm + row_kd)),
+              "r"(smem_addr(dqm)), "r"(bytes)
               : "memory");
           asm volatile(
-              "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-              ::"l"(gmem_addr(out.d_qlv + row_kd)), "r"(smem_addr(dqlv)),
-              "r"(bytes)
+              "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], "
+              "%2;\n" ::"l"(gmem_addr(out.d_qlv + row_kd)),
+              "r"(smem_addr(dqlv)), "r"(bytes)
               : "memory");
           asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         }
@@ -503,110 +526,64 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 2)
             (dy[k] - sdy) * ysoft / in.tau + aq[k] - qk * saq;
       }
     }
+    // the last chunk's and d_pi's terms into the block's scratch row (H, I
+    // and J/K leave them be; the next row's first barrier is after them)
+    if (chunks == 1) {
+      accumulate(row_seg, scratch, cols, out.scratch, first);
+    } else {
+      accumulate(pi_seg, scratch, cols, out.scratch, first);
+      accumulate(pm_seg(k_last, K), scratch, cols, out.scratch, first);
+      accumulate(plv_seg(k_last, K), scratch, cols, out.scratch, first);
+    }
   }
 
-  // ---- M/N. the batch sums: this cluster's rows, then every cluster ------
-  cluster_wait();
-  // with one chunk the shared partial is laid out as a scratch row: one
-  // segment
-  const Segment row_seg{pi_part, cols, 0};
-  const int k0 = (chunks - 1) * p.kc;
-  if (chunks == 1) {
-    cluster_sum(cluster, row_seg, ranks, scratch, cols, out.scratch);
-  } else {
-    cluster_sum(cluster, pi_seg, ranks, scratch, cols, out.scratch);
-    cluster_sum(cluster, pm_seg(k0, K), ranks, scratch, cols, out.scratch);
-    cluster_sum(cluster, plv_seg(k0, K), ranks, scratch, cols, out.scratch);
-  }
-  cluster_arrive();  // done reading the peers' shared memory
-  // this block's stripe of the cluster's row is written; the last block of
-  // its rank to get here sums that stripe over the clusters
-  __syncthreads();
-  if (t == 0) {  // the fence is cumulative: it covers the block's writes
-    __threadfence();
-    *last_of_rank = atomicAdd(out.ticket + rank, 1u) == n_clusters - 1u;
-    __threadfence();
-  }
-  __syncthreads();
-  if (*last_of_rank) {
-    // column j's batch sum to its gradient: d_pi, d_pm, d_plv
-    auto emit = [&](int j, float v) {
-      if (j < K)
-        out.d_pi[j] = v;
-      else if (j >= kp && j < kp + kd)
-        out.d_pm[j - kp] = v;
-      else if (j >= kp + kd)
-        out.d_plv[j - kp - kd] = v;
-    };
-    if (chunks == 1)
-      stripe_sum(row_seg, n_clusters, cols, out.scratch, rank, C, emit);
-    else
-      stripe_sum(pi_seg, n_clusters, cols, out.scratch, rank, C, emit);
-    for (int c = 0; chunks > 1 && c < chunks; ++c) {
-      const int c0 = c * p.kc, c1 = min(K, c0 + p.kc);
-      stripe_sum(pm_seg(c0, c1), n_clusters, cols, out.scratch, rank, C,
-                 emit);
-      stripe_sum(plv_seg(c0, c1), n_clusters, cols, out.scratch, rank, C,
-                 emit);
-    }
-    if (t == 0) atomicExch(out.ticket + rank, 0u);
-  }
-  // the bulk store reads the tiles until it is done
-  if (live && p.stage_q && t == 0)
+  // ---- M/N. the batch sums: every block's rows are in the scratch; each
+  // block sums its stripe of the columns over the blocks' rows --------------
+  if (p.stage_q && t == 0)
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-  cluster_wait();  // the peers are done reading this block's partial
+  grid_barrier(out.ticket);
+  stripe_sum(out, gridDim.x, K, D);
+  // every block is past the barrier's wait once all are here
+  if (t == 0 && atomicAdd(out.ticket + 1, 1u) == gridDim.x - 1) {
+    atomicExch(out.ticket, 0u);
+    atomicExch(out.ticket + 1, 0u);
+  }
 }
 
-// The backward's launch at (B, K, D): its block and shared memory
-// (plan_launch) and the cluster size C, the largest of min(8, B) and its
-// halvings at which every cluster of the padded grid is resident at once
-// (cudaOccupancyMaxActiveClusters), so that no cluster waits for a second
-// wave. Cached by device and shape: every call at a shape takes the same
-// C, so the same sum order.
+// The backward's launch at (K, D): its block and shared memory
+// (plan_launch) and P, the blocks the card holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs). Cached by
+// device and shape: every call at a shape launches min(B, P) blocks, so
+// takes the same sum order.
 struct BwdLaunch {
   LaunchPlan lp;
-  int C, clusters;
+  int resident;  // P
 };
 
-cudaError_t bwd_launch(int B, int K, int D, BwdLaunch* out) {
+cudaError_t bwd_launch(int K, int D, BwdLaunch* out) {
   static std::mutex mu;
-  static std::map<std::tuple<int, int, int, int>, BwdLaunch> cache;
+  static std::map<std::tuple<int, int, int>, BwdLaunch> cache;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   const std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_tuple(dev, B, K, D);
+  const auto key = std::make_tuple(dev, K, D);
   const auto it = cache.find(key);
   if (it != cache.end()) {
     *out = it->second;
     return cudaSuccess;
   }
-  BwdLaunch b{plan_launch(K, D, bwd_extra_floats(K, D), true, kBwdWarps), 1,
-              B};
+  BwdLaunch b{plan_launch(K, D, bwd_extra_floats(K, D), true, kBwdWarps), 0};
   e = allow_smem(fused_elbo_bwd_kernel, b.lp.smem.bytes);
   if (e != cudaSuccess) return e;
-  for (int c = std::min(kMaxCluster, B); c > 1; c /= 2) {
-    const int n = (B + c - 1) / c;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(n * c);
-    cfg.blockDim = dim3(32 * b.lp.warps);
-    cfg.dynamicSmemBytes = b.lp.smem.bytes;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = c;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    int resident = 0;
-    e = cudaOccupancyMaxActiveClusters(&resident, fused_elbo_bwd_kernel, &cfg);
-    if (e != cudaSuccess) return e;
-    if (resident >= n) {
-      b.C = c;
-      b.clusters = n;
-      break;
-    }
-  }
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fused_elbo_bwd_kernel, 32 * b.lp.warps, b.lp.smem.bytes);
+  if (e != cudaSuccess) return e;
+  if (per_sm == 0) return cudaErrorInvalidConfiguration;  // too large
+  b.resident = per_sm * sms;
   cache[key] = b;
   *out = b;
   return cudaSuccess;
@@ -616,18 +593,28 @@ cudaError_t bwd_launch(int B, int K, int D, BwdLaunch* out) {
 
 extern "C" {
 
-// Floats of prior-gradient scratch a call takes: one partial per cluster
-// (0 if the launch cannot be planned: the launch then reports the error).
+// Floats of prior-gradient scratch a call takes: one partial per block (0
+// if the launch cannot be planned: the launch then reports the error).
 size_t gmvae_fused_elbo_bwd_scratch(int B, int K, int D) {
   BwdLaunch b;
-  if (bwd_launch(B, K, D, &b) != cudaSuccess) return 0;
-  return static_cast<size_t>(b.clusters) * partial_floats(K, D);
+  if (bwd_launch(K, D, &b) != cudaSuccess) return 0;
+  return static_cast<size_t>(std::min(B, b.resident)) * partial_floats(K, D);
+}
+
+// P at (K, D) on the current device: a call of more than P rows launches
+// P blocks, each taking several rows. Minus the CUDA error if the launch
+// cannot be planned.
+int gmvae_fused_elbo_bwd_resident(int K, int D) {
+  BwdLaunch b;
+  const cudaError_t e = bwd_launch(K, D, &b);
+  return e == cudaSuccess ? b.resident : -static_cast<int>(e);
 }
 
 // g_in/eps_in null: the forward's threefry noise regenerated from (k0, k1).
 // `scratch` holds gmvae_fused_elbo_bwd_scratch(B, K, D) floats;
-// `ticket` is 0 and is left 0. One launch on `stream`. Returns the launch's
-// CUDA error (0 on success).
+// `ticket` is 0 and is left 0. One launch on `stream`; `blocks`, if not
+// null, receives its blocks, min(B, P). Returns the launch's CUDA error (0
+// on success).
 int gmvae_fused_elbo_bwd(const float* k_logits, const float* q_means,
                          const float* q_logvars, const float* pi_logits,
                          const float* p_means, const float* p_logvars,
@@ -637,25 +624,23 @@ int gmvae_fused_elbo_bwd(const float* k_logits, const float* q_means,
                          float* d_pm, float* d_plv, float* scratch,
                          unsigned int* ticket, int B, int K, int D,
                          unsigned int k0, unsigned int k1, float tau,
-                         int hard, void* stream) {
+                         int hard, void* stream, int* blocks) {
   BwdLaunch b;
-  cudaError_t e = bwd_launch(B, K, D, &b);
+  cudaError_t e = bwd_launch(K, D, &b);
   if (e != cudaSuccess) return static_cast<int>(e);
   const HeadIn in{k_logits, q_means, q_logvars, pi_logits, p_means,
                   p_logvars, g_in,     eps_in,    K,         D,
                   group_lanes(D), k0,  k1,        tau,       hard};
   const SmemPlan& plan = b.lp.smem;
-  const int C = b.C;
+  const int n = std::min(B, b.resident);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(b.clusters * C);
+  cfg.gridDim = dim3(n);
   cfg.blockDim = dim3(32 * b.lp.warps);
   cfg.dynamicSmemBytes = plan.bytes;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  attr[0].id = cudaLaunchAttributeCooperative;  // the grid barrier's need
+  attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, fused_elbo_bwd_kernel, in,
@@ -664,6 +649,7 @@ int gmvae_fused_elbo_bwd(const float* k_logits, const float* q_means,
                                ticket},
                          Plan{B, plan.stage_q, plan.stage_p, plan.kc});
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (blocks != nullptr) *blocks = n;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -79,7 +79,8 @@ constexpr int kMinWarps = 4;   // the four warp roles of row_scalars
 constexpr int kMaxWarps = 20;  // the forward's __launch_bounds__
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 232448;  // shared memory a block may take (H100)
-constexpr size_t kHeaderBytes = 16;  // the staging mbarrier and a flag
+// the staging mbarrier, padded so that the tiles after it are 16-byte aligned
+constexpr size_t kHeaderBytes = 16;
 
 // lanes per component group: the smallest power of two >= D, at most 32
 inline int group_lanes(int D) {

@@ -10,7 +10,10 @@ module import time, so the CPU tests import every module without ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by kernel name: each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
-main path went through the kernels.
+main path went through the kernels. ``fused_elbo_bwd_persistent`` counts
+the backward's launches whose blocks each took several rows, as the launch
+reports (B > P: a subset of ``fused_elbo_bwd``'s, not launches of their
+own).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 LAUNCHES: Dict[str, int] = {'fused_elbo_fwd': 0, 'fused_elbo_bwd': 0,
+                            'fused_elbo_bwd_persistent': 0,
                             'wide_head_fwd': 0, 'threefry_grid': 0}
 
 _lock = threading.Lock()
@@ -49,8 +53,9 @@ _SIGNATURES = {
     'gmvae_fused_elbo_fwd': (_I, [_P] * 11 + [_I, _I, _I, _U, _U,
                                               ctypes.c_float, _I, _P]),
     'gmvae_fused_elbo_bwd': (_I, [_P] * 19 + [_I, _I, _I, _U, _U,
-                                              ctypes.c_float, _I, _P]),
+                                              ctypes.c_float, _I, _P, _P]),
     'gmvae_fused_elbo_bwd_scratch': (ctypes.c_size_t, [_I, _I, _I]),
+    'gmvae_fused_elbo_bwd_resident': (_I, [_I, _I]),
     'gmvae_wide_head_fwd': (_I, [_P] * 14 + [_I] * 4 + [_U, _U,
                                                         ctypes.c_float, _P]),
     'gmvae_wide_head_smem': (ctypes.c_size_t, [_I] * 4),

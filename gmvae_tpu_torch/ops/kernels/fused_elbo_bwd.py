@@ -4,24 +4,28 @@ Replaces the TPU kernels ``gmvae_tpu/ops/kernels/fused_elbo_bwd.py:
 _bwd_kernel_flat`` and ``:_bwd_kernel`` (flat and (TB, K, D) layouts of the
 same hand-derived VJP). The CUDA kernel
 (``gmvae_tpu_torch/csrc/fused_elbo_bwd.cu``) is one shape-generic kernel
-with the forward's layout, one block per batch row; it regenerates the
-forward's noise, y and z from the threefry key (no noise residuals) through
-the forward's own device functions (``csrc/head_row.cuh``), so in hard mode
-it picks the forward's argmax.
+with the forward's layout, a block working a batch row at a time; it
+regenerates the forward's noise, y and z from the threefry key (no noise
+residuals) through the forward's own device functions
+(``csrc/head_row.cuh``), so in hard mode it picks the forward's argmax.
 
 What bounds it on an H100: bytes, not operations. A row reads 2*K*D + 2K
 + D + 8 floats and writes 2*K*D + K, for about 50*K*D float operations;
 at the flagship shape the function moves ~230 KB, so a launch is
 latency-bound in practice (the chain of dependent phases through a row).
-One call is one launch. The batch-summed prior gradients are not summed
-with float atomics: the row blocks run in clusters of up to 8, each
-cluster sums its rows' partials in rank order through distributed shared
-memory into one scratch row, and for each cluster rank the last block to
-finish (an integer ticket a rank) sums that rank's columns over the
-cluster rows in order, so two runs give bit-identical gradients. The
-tickets are 8 device counters per device, allocated and zeroed once, which
-every call leaves at 0; calls on one device must not overlap (one stream
-at a time).
+One call is one launch, a cooperative one of min(B, P) blocks, P the
+blocks the card holds at once at (K, D) (``resident_blocks``): block i
+takes rows i, i + P, ... in order (one row where B <= P, every 128-row
+config's and a pod rank's call; eight at celeba_dp16's 1,024 rows, P =
+132) and adds each row's prior-gradient partial into its own scratch row.
+After a grid barrier every block sums its stripe of the columns over the
+blocks' rows in a fixed order, so the batch sum spreads over the whole
+card, without float atomics, and two runs give bit-identical gradients.
+``LAUNCHES['fused_elbo_bwd_persistent']`` counts the calls whose blocks
+took more than one row (B > P: the persistent grid), as the launch
+reports. The barrier's two tickets are device counters per device,
+allocated and zeroed once, which every call leaves at 0; calls on one
+device must not overlap (one stream at a time).
 
 ``manual_bwd`` is the plain version: the analytic VJP, step for step the
 reference's ``manual_bwd`` (sections A-N), in plain torch.
@@ -29,6 +33,7 @@ reference's ``manual_bwd`` (sections A-N), in plain torch.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -157,17 +162,28 @@ def manual_bwd(g, eps, k_logits, q_means, q_logvars, pi_logits, p_means,
 
 
 _TICKETS: Dict[int, torch.Tensor] = {}
-CLUSTER_RANKS = 8   # blocks a cluster at most: one ticket each
+TICKETS = 2   # the grid barrier's: blocks arrived, blocks done
 
 
 def _ticket(dev: torch.device) -> torch.Tensor:
-    """The backward kernel's tickets on ``dev``, one per cluster rank:
-    zeroed int32, allocated once; every launch leaves them at 0."""
+    """The backward kernel's grid-barrier tickets on ``dev``: zeroed int32,
+    allocated once; every launch leaves them at 0."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     if index not in _TICKETS:
-        _TICKETS[index] = torch.zeros(CLUSTER_RANKS, dtype=torch.int32,
+        _TICKETS[index] = torch.zeros(TICKETS, dtype=torch.int32,
                                       device=torch.device('cuda', index))
     return _TICKETS[index]
+
+
+def resident_blocks(k: int, d: int, dev: torch.device) -> int:
+    """P: the backward kernel's blocks that the card ``dev`` holds at once
+    at (K, D). A call of more than P rows launches P blocks, each taking
+    several rows; one of at most P rows, a block a row."""
+    with torch.cuda.device(dev):
+        p = _build.library().gmvae_fused_elbo_bwd_resident(k, d)
+    if p <= 0:
+        _build.check(-p, 'fused_elbo_bwd plan')
+    return p
 
 
 def launch_args(key_u32: Sequence[int], k_logits, q_means, q_logvars,
@@ -175,7 +191,8 @@ def launch_args(key_u32: Sequence[int], k_logits, q_means, q_logvars,
                 noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Check the inputs and allocate the outputs of one backward launch:
     ``(args, grads)``, ``args`` the C function's arguments on the current
-    stream, ``grads`` the ``BwdGrads`` it fills. ``chip_smoke.py`` reuses
+    stream (the last a pointer to a C int that receives the blocks
+    launched), ``grads`` the ``BwdGrads`` it fills. ``chip_smoke.py`` reuses
     them to time the bare kernel."""
     b, k = k_logits.shape
     d = q_means.shape[-1]
@@ -194,7 +211,7 @@ def launch_args(key_u32: Sequence[int], k_logits, q_means, q_logvars,
     empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
     grads = BwdGrads(empty(b, k), empty(b, k, d), empty(b, k, d), empty(k),
                      empty(k, d), empty(k, d))
-    # one prior-gradient partial per cluster of row blocks
+    # one prior-gradient partial per block
     with torch.cuda.device(dev):
         scratch = empty(_build.library().gmvae_fused_elbo_bwd_scratch(b, k, d))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -202,7 +219,8 @@ def launch_args(key_u32: Sequence[int], k_logits, q_means, q_logvars,
             ptr(p_means), ptr(p_logvars), ptr(g_in), ptr(eps_in), ptr(cs),
             ptr(cz), ptr(cy), *(ptr(t) for t in grads), ptr(scratch),
             ptr(_ticket(dev)), b, k, d, k0, k1, float(tau), int(bool(hard)),
-            torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream,
+            ctypes.pointer(ctypes.c_int(0)))
     return args, grads
 
 
@@ -228,4 +246,6 @@ def fused_elbo_bwd(key_u32, k_logits, q_means, q_logvars, pi_logits, p_means,
         rc = _build.library().gmvae_fused_elbo_bwd(*args)
     _build.check(rc, 'fused_elbo_bwd launch')
     _build.LAUNCHES['fused_elbo_bwd'] += 1
+    if args[-1].contents.value < k_logits.shape[0]:
+        _build.LAUNCHES['fused_elbo_bwd_persistent'] += 1
     return grads

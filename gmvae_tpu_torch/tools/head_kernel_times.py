@@ -38,9 +38,11 @@ import statistics
 import subprocess
 import sys
 
-# the head kernels' shapes on the configs' paths (PERF.md §6 rows 1-4)
+# the head kernels' shapes on the configs' paths (PERF.md §6 rows 1-4;
+# the last two a pod rank's)
 SHAPES = ((128, 10, 10), (8, 2, 4), (128, 10, 64), (128, 1, 10),
-          (128, 20, 128), (128, 10, 128), (128, 64, 256), (1024, 64, 256))
+          (128, 20, 128), (128, 10, 128), (128, 64, 256), (1024, 64, 256),
+          (2, 10, 10), (2, 64, 256))
 # the wide kernel (H, K, D, B): the ablation's two shapes and a ragged batch
 WIDE_SHAPES = ((512, 10, 10, 128), (512, 20, 128, 128), (512, 10, 10, 37))
 LAUNCHES = 200

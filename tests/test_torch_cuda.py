@@ -258,8 +258,8 @@ def _bwd_args(b, k, d, dev, streamed, hard=False, key=(7, 9)):
 @pytest.mark.parametrize('shape', [(1, 10, 10), (13, 10, 10), (1, 20, 128),
                                    (17, 20, 128)])
 def test_bwd_kernel_at_ragged_batches(dev, shape, streamed):
-    """Batches that are not a multiple of the cluster size (padding blocks)
-    and B=1 (a cluster of one)."""
+    """Batches of odd sizes (blocks the stripes of the batch sum share
+    unevenly) and B=1 (a grid of one block)."""
     b, k, d = shape
     args, ref = _bwd_args(b, k, d, dev, streamed)
     got = fused_elbo_bwd.fused_elbo_bwd(*args)
@@ -283,10 +283,9 @@ def test_bwd_kernel_launches_a_shape_again_after_a_smaller_one(dev):
         assert torch.equal(a, b)
 
 
-def test_bwd_kernel_is_one_launch(dev):
+def _assert_one_launch_a_call(args):
     """10 backward calls launch 10 kernels, all the backward kernel."""
     from gmvae_tpu_torch.utils.profiling import profile_device
-    args, _ = _bwd_args(128, 10, 10, dev, False)
     fused_elbo_bwd.fused_elbo_bwd(*args)      # warm: the ticket, the build
     _, _, _, by_name = profile_device(
         lambda: [fused_elbo_bwd.fused_elbo_bwd(*args) for _ in range(10)])
@@ -297,18 +296,94 @@ def test_bwd_kernel_is_one_launch(dev):
     assert 'fused_elbo_bwd_kernel' in name and n == 10, by_name
 
 
-@pytest.mark.parametrize('shape', [(128, 10, 10), (37, 5, 11),
-                                   (128, 20, 128)])
-def test_bwd_kernel_reruns_bit_identical(dev, shape):
-    """50 calls in a row equal the first bit for bit: the cluster tickets
-    are back at 0 after every call."""
-    args, _ = _bwd_args(*shape, dev, False)
+def test_bwd_kernel_is_one_launch(dev):
+    """10 backward calls launch 10 kernels, all the backward kernel."""
+    _assert_one_launch_a_call(_bwd_args(128, 10, 10, dev, False)[0])
+
+
+def _assert_reruns_bit_identical(args, dev):
+    """50 calls in a row equal the first bit for bit, and the tickets are
+    back at 0."""
     first = fused_elbo_bwd.fused_elbo_bwd(*args)
     for _ in range(50):
         again = fused_elbo_bwd.fused_elbo_bwd(*args)
         for a, b_ in zip(first, again):
             assert torch.equal(a, b_)
     assert not fused_elbo_bwd._ticket(dev).any()
+
+
+@pytest.mark.parametrize('shape', [(128, 10, 10), (37, 5, 11),
+                                   (128, 20, 128)])
+def test_bwd_kernel_reruns_bit_identical(dev, shape):
+    """50 calls in a row equal the first bit for bit: the grid barrier's
+    tickets are back at 0 after every call."""
+    _assert_reruns_bit_identical(_bwd_args(*shape, dev, False)[0], dev)
+
+
+def _persistent_shape(k, d, over, dev):
+    """(B, K, D) with B = P + ``over``: P (``resident_blocks``) the blocks
+    the card holds at once at (K, D), so the call's P blocks take several
+    rows each, ``over`` rows past one wave (the blocks then take unequal
+    numbers of rows)."""
+    return fused_elbo_bwd.resident_blocks(k, d, dev) + over, k, d
+
+
+@pytest.mark.parametrize('hard', [False, True])
+@pytest.mark.parametrize('k, d, over', [(64, 256, 1), (10, 10, 37),
+                                        (20, 128, 131)])
+def test_bwd_kernel_persistent_grid_matches_manual_bwd(dev, k, d, over,
+                                                       hard):
+    """Batches of more rows than the card holds blocks at once: the
+    persistent grid (its counter rises, so a shape that missed the path
+    fails here) against ``manual_bwd``, the same tolerances as above."""
+    b, k, d = _persistent_shape(k, d, over, dev)
+    args, ref = _bwd_args(b, k, d, dev, False, hard=hard)
+    n0 = _build.LAUNCHES['fused_elbo_bwd_persistent']
+    got = fused_elbo_bwd.fused_elbo_bwd(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES['fused_elbo_bwd_persistent'] == n0 + 1, b
+    _assert_grads_close(got, ref, per_row=k * d >= 2560)
+
+
+def test_bwd_kernel_persistent_grid_reruns_bit_identical(dev):
+    """50 calls of the persistent grid equal the first bit for bit, and
+    its barrier's tickets are back at 0."""
+    args, _ = _bwd_args(*_persistent_shape(10, 10, 37, dev), dev, False)
+    n0 = _build.LAUNCHES['fused_elbo_bwd_persistent']
+    _assert_reruns_bit_identical(args, dev)
+    assert _build.LAUNCHES['fused_elbo_bwd_persistent'] == n0 + 51
+
+
+def test_bwd_kernel_persistent_grid_is_one_launch(dev):
+    """10 calls of the persistent grid launch 10 kernels, all the backward
+    kernel."""
+    args, _ = _bwd_args(*_persistent_shape(10, 10, 37, dev), dev, False)
+    n0 = _build.LAUNCHES['fused_elbo_bwd_persistent']
+    _assert_one_launch_a_call(args)
+    assert _build.LAUNCHES['fused_elbo_bwd_persistent'] == n0 + 11
+
+
+@pytest.mark.parametrize('shape, persistent', [((1024, 64, 256), True),
+                                               ((128, 10, 10), False)])
+def test_bwd_persistent_counter_counts_its_calls(dev, shape, persistent):
+    """celeba_dp16's 1,024 rows take the persistent grid on every call;
+    mnist_k10's 128 rows a block a row. The launch reports its blocks,
+    min(B, P), and the counter follows that report."""
+    b, k, d = shape
+    p = fused_elbo_bwd.resident_blocks(k, d, dev)
+    assert (b > p) == persistent
+    call = _bwd_args(b, k, d, dev, False)[0]
+    args, _ = fused_elbo_bwd.launch_args(*call)
+    _build.check(_build.library().gmvae_fused_elbo_bwd(*args), 'launch')
+    torch.cuda.synchronize()
+    assert args[-1].contents.value == min(b, p), (b, p)
+    n0 = dict(_build.LAUNCHES)
+    for _ in range(3):
+        fused_elbo_bwd.fused_elbo_bwd(*call)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES['fused_elbo_bwd'] == n0['fused_elbo_bwd'] + 3
+    assert (_build.LAUNCHES['fused_elbo_bwd_persistent']
+            == n0['fused_elbo_bwd_persistent'] + 3 * persistent)
 
 
 def _f64_shares(got, exact):
