@@ -29,7 +29,10 @@ Phases, each of which raises on failure (nothing is caught):
 6. training (``[train]``): ``api.train('mnist_k10')`` at full width for
    TRAIN_STEPS steps (4,000 of the config's 20,000) on the stand-in MNIST
    data, with the launch counts reset just before: the forward kernel once
-   per step plus once per eval batch, the backward kernel once per step;
+   per step plus once per eval batch, the backward kernel once per step,
+   every step but the trainer's first (the capture's warm-up) replayed
+   from the step's CUDA graphs (``training.StepGraphs``; the cifar, sweep
+   and celeba phases check the same, the deep phase that none was);
    its evals within DEEP_TRACE_RTOL of the port's full 20,000-step run's
    at the same steps (TRAIN_TRACE); the last eval ELBO within 1% of the
    reference's trained -225.94287109375, ACC and NMI >= 0.85, the ELBO
@@ -86,8 +89,10 @@ Phases, each of which raises on failure (nothing is caught):
     sharded train set and the per-leaf clip, on the CelebA stand-in, for
     CELEBA_STEPS steps in a one-rank NCCL group that the port's
     ``init_distributed`` starts (the gradient's all-reduce on the path),
-    with exact launch counts of the head at (1024, 64, 256) and a finite,
-    rising eval ELBO; a profile of one chunk (``[celeba_profile]``); and
+    with exact launch counts of the head at (1024, 64, 256), every step but
+    the first replayed from the step's CUDA graphs (the all-reduce captured
+    in them), and a finite, rising eval ELBO; a profile of one chunk
+    (``[celeba_profile]``); and
     ``[celeba_xcheck]``, 3 steps GPU vs CPU at batch 128;
 14. ``[dp2]``: mnist_k10 at full width over two ranks on the card
     (``parallel/launch.py``, gloo), 64 rows a rank, 20 steps: both ranks'
@@ -959,12 +964,14 @@ def train_and_profile(dev, cfg, tag, profile_steps, dataset=None,
         torch.cuda.synchronize()
         for name in _build.LAUNCHES:
             _build.LAUNCHES[name] = 0
+        _build.REPLAYS['train_step'] = 0
         t0 = time.perf_counter()
         trainer, state, hist = api.train(cfg, dataset=dataset, device=dev,
                                          run_dir=run_dir)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
+        launches = dict(_build.LAUNCHES,
+                        replays=_build.REPLAYS['train_step'])
         ckpts = sorted(os.listdir(os.path.join(run_dir, cfg.name)))
     n_params = sum(p.numel() for p in state.params.values())
     log(f'[{tag}] {cfg.steps} steps of {cfg.name} ({n_params} parameters) '
@@ -1037,6 +1044,16 @@ def check_trace(tag, hist, trace):
           f'[{tag}] the run left the full run\'s trajectory: {trace_rel}')
 
 
+def check_replays(cfg, launches, replayed=True):
+    """Every step of ``api.train`` replayed from the step's CUDA graphs but
+    the trainer's first, which runs eagerly as the capture's warm-up, where
+    ``replayed``; else none (the config stays eager)."""
+    want = cfg.steps - 1 if replayed else 0
+    check(launches['replays'] == want,
+          f'{cfg.name}: {launches["replays"]} steps replayed, expected '
+          f'{want}')
+
+
 def check_head_launches(cfg, launches, hist, n_test, persistent=False):
     """The forward kernel once a step and once an eval batch, the backward
     once a step; its blocks taking several rows each (B > P) on every step
@@ -1067,6 +1084,7 @@ def phase_train(dev, run_dir):
     launches, hist, wall, trainer, state, prof, by_name = train_and_profile(
         dev, cfg, 'train', PROFILE_STEPS, run_dir=run_dir)
     check_head_launches(cfg, launches, hist, len(trainer.dataset.test_x))
+    check_replays(cfg, launches)
     summary = trained_quality('train', cfg, hist, wall, ORACLE_ELBO)
     check_trace('train', [r for r in hist if r['step'] in TRAIN_TRACE],
                 TRAIN_TRACE)
@@ -1300,6 +1318,7 @@ def phase_cifar_train(dev):
         dev, cfg, 'cifar_train', CIFAR_PROFILE_STEPS, dataset=ds)
     n_params = sum(p.numel() for p in state.params.values())
     check_head_launches(cfg, launches, hist, len(ds.test_x))
+    check_replays(cfg, launches)
     for row in hist:
         for name in ('elbo_nats', 'iwae_nats', 'acc', 'nmi'):
             check(math.isfinite(row[name]), f'{name} = {row[name]}')
@@ -1362,6 +1381,7 @@ def phase_deep_train(dev):
     check(n_params == DEEP_PARAMS, f'{n_params} parameters')
     check(not any(launches.values()),
           f'a kernel launched on the deep path: {launches}')
+    check_replays(cfg, launches, replayed=False)
     summary = trained_quality('deep_train', cfg, hist, wall,
                               DEEP_ORACLE_ELBO, n_params)
     check_trace('deep_train', hist, DEEP_TRACE)
@@ -1385,6 +1405,7 @@ def phase_sweep_train(dev):
             dev, cfg, 'sweep_train', SWEEP_PROFILE_STEPS)
         n_test = len(trainer.dataset.test_x)
         check_head_launches(cfg, n, hist, n_test)
+        check_replays(cfg, n)
         check([int(r['step']) for r in hist] == [SWEEP_STEPS],
               f'{name}: evals at {[r["step"] for r in hist]}')
         row = hist[-1]
@@ -1945,6 +1966,7 @@ def phase_celeba_train(dev):
     check(trainer.n_dp == 1 and trainer.n_local == len(ds.train_x),
           f'{trainer.n_dp} ranks, {trainer.n_local} rows')
     check_head_launches(cfg, launches, hist, len(ds.test_x), persistent=True)
+    check_replays(cfg, launches)
     check(len(hist) == 2, f'{len(hist)} evals')
     for row in hist:
         for name in ('elbo_nats', 'iwae_nats', 'acc', 'nmi'):
@@ -2095,15 +2117,19 @@ def phase_stream(dev):
         torch.cuda.synchronize()
         for name in _build.LAUNCHES:
             _build.LAUNCHES[name] = 0
+        _build.REPLAYS['train_step'] = 0
         t0 = time.perf_counter()
         for _, payload in trainer.iter_chunk_plans(0, STREAM_STEPS):
             state, _ = trainer.run_chunk(state, payload)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches[placement] = dict(_build.LAUNCHES)
+        # the warm-up's chunks captured the graphs: every step replayed
         check(launches[placement]['fused_elbo_fwd'] == STREAM_STEPS
-              and launches[placement]['fused_elbo_bwd'] == STREAM_STEPS,
-              f'[stream] {placement} launches {launches[placement]}')
+              and launches[placement]['fused_elbo_bwd'] == STREAM_STEPS
+              and _build.REPLAYS['train_step'] == STREAM_STEPS,
+              f'[stream] {placement} launches {launches[placement]}, '
+              f'{_build.REPLAYS["train_step"]} steps replayed')
         out[placement] = (state, STREAM_STEPS * cfg.batch_size / wall)
     same = all(torch.equal(v, out['host_stream'][0].params[k])
                for k, v in out['device'][0].params.items())

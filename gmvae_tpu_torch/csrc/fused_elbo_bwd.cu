@@ -523,7 +523,7 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 2)
         const float ysoft = st.ysoft[k];
         out.d_kl[static_cast<size_t>(row) * K + k] =
             c_klc * qk * ((st.lq[k] - st.lp[k]) - kl) +
-            (dy[k] - sdy) * ysoft / in.tau + aq[k] - qk * saq;
+            (dy[k] - sdy) * ysoft / *in.tau + aq[k] - qk * saq;
       }
     }
     // the last chunk's and d_pi's terms into the block's scratch row (H, I
@@ -610,7 +610,8 @@ int gmvae_fused_elbo_bwd_resident(int K, int D) {
   return e == cudaSuccess ? b.resident : -static_cast<int>(e);
 }
 
-// g_in/eps_in null: the forward's threefry noise regenerated from (k0, k1).
+// g_in/eps_in null: the forward's threefry noise regenerated from the key.
+// `key` (two words) and `tau` are device pointers, read by the kernel.
 // `scratch` holds gmvae_fused_elbo_bwd_scratch(B, K, D) floats;
 // `ticket` is 0 and is left 0. One launch on `stream`; `blocks`, if not
 // null, receives its blocks, min(B, P). Returns the launch's CUDA error (0
@@ -623,14 +624,14 @@ int gmvae_fused_elbo_bwd(const float* k_logits, const float* q_means,
                          float* d_kl, float* d_qm, float* d_qlv, float* d_pi,
                          float* d_pm, float* d_plv, float* scratch,
                          unsigned int* ticket, int B, int K, int D,
-                         unsigned int k0, unsigned int k1, float tau,
-                         int hard, void* stream, int* blocks) {
+                         const unsigned int* key, const float* tau, int hard,
+                         void* stream, int* blocks) {
   BwdLaunch b;
   cudaError_t e = bwd_launch(K, D, &b);
   if (e != cudaSuccess) return static_cast<int>(e);
   const HeadIn in{k_logits, q_means, q_logvars, pi_logits, p_means,
                   p_logvars, g_in,     eps_in,    K,         D,
-                  group_lanes(D), k0,  k1,        tau,       hard};
+                  group_lanes(D), key, tau,       hard};
   const SmemPlan& plan = b.lp.smem;
   const int n = std::min(B, b.resident);
   cudaLaunchConfig_t cfg = {};

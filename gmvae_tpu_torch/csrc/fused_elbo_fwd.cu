@@ -81,15 +81,16 @@ const char* gmvae_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// g_in/eps_in null: in-kernel threefry noise from (k0, k1). Returns
+// g_in/eps_in null: in-kernel threefry noise from the key. `key` (two
+// words) and `tau` are device pointers, read by the kernel. Returns
 // cudaGetLastError() after the launch (0 on success).
 int gmvae_fused_elbo_fwd(const float* k_logits, const float* q_means,
                          const float* q_logvars, const float* pi_logits,
                          const float* p_means, const float* p_logvars,
                          const float* g_in, const float* eps_in, float* z,
                          float* y, float* scal, int B, int K, int D,
-                         unsigned int k0, unsigned int k1, float tau,
-                         int hard, void* stream) {
+                         const unsigned int* key, const float* tau, int hard,
+                         void* stream) {
   const int L = group_lanes(D);
   const LaunchPlan lp = plan_launch(K, D, 0, false, kMaxWarps);
   const SmemPlan& plan = lp.smem;
@@ -97,7 +98,7 @@ int gmvae_fused_elbo_fwd(const float* k_logits, const float* q_means,
   if (e != cudaSuccess) return static_cast<int>(e);
   const HeadIn in{k_logits, q_means, q_logvars, pi_logits, p_means,
                   p_logvars, g_in,     eps_in,    K,         D,
-                  L,        k0,        k1,        tau,       hard};
+                  L,        key,       tau,       hard};
   fused_elbo_fwd_kernel<<<B, 32 * lp.warps, plan.bytes,
                           static_cast<cudaStream_t>(stream)>>>(
       in, plan.stage_q, plan.stage_p, z, y, scal);

@@ -360,8 +360,12 @@ struct HeadIn {
   const float* g_in;       // [B, K] streamed Gumbel noise, or null
   const float* eps_in;     // [B, D] streamed normal noise, or null
   int K, D, L;
-  uint32_t k0, k1;         // threefry key when the noise is not streamed
-  float tau;
+  // the threefry key's two words (used when the noise is not streamed) and
+  // tau, in device memory: a launch captured in a CUDA graph reads each
+  // replay's values. Read where they are used, so no register holds them
+  // past that
+  const uint32_t* key;
+  const float* tau;
   int hard;
 };
 
@@ -545,18 +549,20 @@ static __device__ __forceinline__ void row_forward(const HeadIn& in,
   Acc* __restrict__ qmix = reinterpret_cast<Acc*>(st.part);  // [2][G][D]
 
   // ---- noise; the K-vectors' inputs ----------------------------------------
+  const uint32_t k0 = in.key[0], k1 = in.key[1];
+  const float tau = *in.tau;
   for (int i = t; i < K + D; i += T) {
     if (i < K) {
       const float lg = r.logits[i];
       const float gk = in.g_in ? in.g_in[static_cast<size_t>(row) * K + i]
-                               : gumbel_at(in.k0, in.k1, row, i);
-      st.ys[i] = (lg + gk) / in.tau;
+                               : gumbel_at(k0, k1, row, i);
+      st.ys[i] = (lg + gk) / tau;
       st.lq[i] = lg;
       st.lp[i] = in.pi_logits[i];
     } else {
       const int d = i - K;
       st.es[d] = in.eps_in ? in.eps_in[static_cast<size_t>(row) * D + d]
-                           : normal_at(in.k0, in.k1, row, d);
+                           : normal_at(k0, k1, row, d);
     }
   }
   __syncthreads();

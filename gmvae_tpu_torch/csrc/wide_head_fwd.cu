@@ -536,22 +536,23 @@ int gmvae_wide_head_cluster(int B, int H, int K, int D) {
   return wide_launch(B, H, K, D, &p) == cudaSuccess ? p.C : 0;
 }
 
-// Soft y and in-kernel threefry noise from (k0, k1) only. One launch on
+// Soft y and in-kernel threefry noise from the key only; `key` (two words)
+// and `tau` are device pointers, read by the kernel. One launch on
 // `stream`. Returns the launch's CUDA error (0 on success).
 int gmvae_wide_head_fwd(const float* feats, const float* wk, const float* bk,
                         const float* wm, const float* bm, const float* wlv,
                         const float* blv, const float* pi_logits,
                         const float* p_means, const float* p_logvars,
                         float* z, float* y, float* scal, float* k_logits,
-                        int B, int H, int K, int D, unsigned int k0,
-                        unsigned int k1, float tau, void* stream) {
+                        int B, int H, int K, int D, const unsigned int* key,
+                        const float* tau, void* stream) {
   WidePlan p;
   cudaError_t e = wide_launch(B, H, K, D, &p);
   if (e != cudaSuccess) return static_cast<int>(e);
   const WideIn w{feats, wk, bk, wm, bm, wlv, blv, B, H};
   const HeadIn in{nullptr, nullptr, nullptr,     pi_logits, p_means,
                   p_logvars, nullptr, nullptr,   K,         D,
-                  group_lanes(D), k0, k1,        tau,       0};
+                  group_lanes(D), key, tau,      0};
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
       wide_config(p, B, &attr, static_cast<cudaStream_t>(stream));

@@ -13,7 +13,7 @@ against gathers of the bytes themselves.
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -50,24 +50,29 @@ def unpack_rows(w: torch.Tensor, image_shape) -> torch.Tensor:
     return b[..., :p].reshape(*w.shape[:-1], *image_shape)
 
 
-def normalize_image(x_uint8: torch.Tensor) -> torch.Tensor:
-    """uint8 [0,255] -> float32 [0,1]."""
-    return x_uint8.to(torch.float32) * (1.0 / 255.0)
+def normalize_image(x_uint8: torch.Tensor,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """uint8 [0,255] -> float32 [0,1], into ``out`` where given."""
+    return torch.mul(x_uint8.to(torch.float32), 1.0 / 255.0, out=out)
 
 
-def dynamic_binarize(key: prng.Key, x01: torch.Tensor) -> torch.Tensor:
+def dynamic_binarize(key: prng.Key, x01: torch.Tensor,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Bernoulli-resample pixels with p = intensity, one fresh mask per
-    key."""
+    key; into ``out`` where given (it may be ``x01``)."""
     u = prng.uniform(key, x01.shape, device=x01.device)
-    return (u < x01).to(x01.dtype)
+    if out is None:
+        return (u < x01).to(x01.dtype)
+    return out.copy_(u < x01)
 
 
-def preprocess_batch(key: prng.Key, x_uint8: torch.Tensor,
-                     binarize: bool) -> torch.Tensor:
-    """Normalize, then binarize when the config asks for it."""
-    x = normalize_image(x_uint8)
+def preprocess_batch(key: prng.Key, x_uint8: torch.Tensor, binarize: bool,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Normalize, then binarize when the config asks for it; into ``out``
+    (float32, the batch's shape) where given."""
+    x = normalize_image(x_uint8, out)
     if binarize:
-        x = dynamic_binarize(key, x)
+        x = dynamic_binarize(key, x, out)
     return x
 
 

@@ -13,7 +13,12 @@ where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels. ``fused_elbo_bwd_persistent`` counts
 the backward's launches whose blocks each took several rows, as the launch
 reports (B > P: a subset of ``fused_elbo_bwd``'s, not launches of their
-own).
+own). A launch captured in a CUDA graph is counted at each replay of the
+graph, not at its capture (``training.StepGraphs``); ``REPLAYS`` counts the
+replays of the training step's graphs, one a step.
+
+The head kernels read the threefry key and tau from device memory
+(``head_scalars``), so a captured launch takes each replay's values.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import threading
 from pathlib import Path
 from typing import Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -41,6 +47,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 LAUNCHES: Dict[str, int] = {'fused_elbo_fwd': 0, 'fused_elbo_bwd': 0,
                             'fused_elbo_bwd_persistent': 0,
                             'wide_head_fwd': 0, 'threefry_grid': 0}
+REPLAYS: Dict[str, int] = {'train_step': 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -50,14 +57,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _SIGNATURES = {
-    'gmvae_fused_elbo_fwd': (_I, [_P] * 11 + [_I, _I, _I, _U, _U,
-                                              ctypes.c_float, _I, _P]),
-    'gmvae_fused_elbo_bwd': (_I, [_P] * 19 + [_I, _I, _I, _U, _U,
-                                              ctypes.c_float, _I, _P, _P]),
+    'gmvae_fused_elbo_fwd': (_I, [_P] * 11 + [_I, _I, _I, _P, _P, _I, _P]),
+    'gmvae_fused_elbo_bwd': (_I, [_P] * 19 + [_I, _I, _I, _P, _P, _I, _P,
+                                              _P]),
     'gmvae_fused_elbo_bwd_scratch': (ctypes.c_size_t, [_I, _I, _I]),
     'gmvae_fused_elbo_bwd_resident': (_I, [_I, _I]),
-    'gmvae_wide_head_fwd': (_I, [_P] * 14 + [_I] * 4 + [_U, _U,
-                                                        ctypes.c_float, _P]),
+    'gmvae_wide_head_fwd': (_I, [_P] * 14 + [_I] * 4 + [_P, _P, _P]),
     'gmvae_wide_head_smem': (ctypes.c_size_t, [_I] * 4),
     'gmvae_wide_head_cluster': (_I, [_I] * 4),
     'gmvae_threefry_grid': (_I, [_U, _U, _P, _P, _P, _P, _I, _P]),
@@ -143,3 +148,40 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         msg = library().gmvae_cuda_error_string(rc).decode()
         raise RuntimeError(f'{what}: CUDA error {rc} ({msg})')
+
+
+class Args(tuple):
+    """A launch's C arguments, holding the tensors that its pointers point
+    into (``keep``) for as long as the arguments are kept."""
+
+    def __new__(cls, args: tuple, keep: tuple):
+        out = super().__new__(cls, args)
+        out.keep = keep
+        return out
+
+
+def head_scalars(key_u32, tau, device: torch.device
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The threefry key and tau where the head kernels read them: ``(key
+    int32 [2], tau float32 [])`` on ``device``, the key's words bit for bit.
+    Tensors already there (the training step's graphs pass views of their
+    per-step slot) are used as they are; host values (a ``(k0, k1)`` pair, a
+    number or a CPU tensor) go over in one copy from pinned memory, which
+    does not wait for the card."""
+    def here(t):
+        return torch.is_tensor(t) and t.device == device
+
+    if here(key_u32) and here(tau):
+        if key_u32.dtype != torch.int32 or tuple(key_u32.shape) != (2,):
+            raise ValueError(f'key: int32 [2] on the device, got '
+                             f'{key_u32.dtype} {tuple(key_u32.shape)}')
+        if tau.dtype != torch.float32 or tau.dim() != 0:
+            raise ValueError(f'tau: a float32 scalar on the device, got '
+                             f'{tau.dtype} {tuple(tau.shape)}')
+        return key_u32, tau
+    words = np.zeros(3, np.uint32)
+    words[:2] = [int(w) & 0xFFFFFFFF for w in key_u32]
+    words[2:] = np.float32(float(tau)).view(np.uint32)
+    staged = torch.from_numpy(words.view(np.int32)).pin_memory().to(
+        device, non_blocking=True)
+    return staged[:2], staged[2:].view(torch.float32)[0]

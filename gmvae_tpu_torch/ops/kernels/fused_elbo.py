@@ -30,6 +30,12 @@ key. ``noise=(g, eps)`` streams explicit noise in instead, and
 ``noise_mode='xla'`` streams the unfused head's ``jax.random`` noise
 (``elbo.head_noise``), as the reference's ``'xla'`` mode does.
 
+The key and ``tau`` reach both kernels through device memory
+(``_build.head_scalars``): as given, where they already are tensors on the
+card (the training step's graphs pass views of their per-step slot, so a
+replay draws that step's noise), else copied there once a call. The plain
+versions take either form.
+
 Autograd: the Function saves its inputs, the key, ``tau`` and ``hard``
 (and the noise only when it was streamed), and returns the per-row scalars
 as one ``[B, 8]`` tensor, so its backward receives the packed cotangent the
@@ -102,15 +108,18 @@ class FusedHead(torch.autograd.Function):
         noise = None if g is None else (g, eps)
         prior = MixturePrior(pi_logits, p_means, p_logvars)
         if k_logits.device.type == 'cuda':
+            # on the card once, for both kernels
+            key_u32, tau = _build.head_scalars(key_u32, tau, k_logits.device)
             z, y, scal = _launch(key_u32, k_logits, q_means, q_logvars,
                                  prior, tau, hard, noise)
         else:
+            tau = float(tau)
             out = fused_mixture_elbo_plain(key_u32, k_logits, q_means,
                                            q_logvars, prior, tau, hard, noise)
             z, y, scal = out.z, out.y, _packed(out)
         ctx.save_for_backward(k_logits, q_means, q_logvars, pi_logits,
                               p_means, p_logvars, g, eps)
-        ctx.key_u32, ctx.tau, ctx.hard = key_u32, float(tau), hard
+        ctx.key_u32, ctx.tau, ctx.hard = key_u32, tau, hard
         return z, y, scal
 
     @staticmethod
@@ -135,10 +144,11 @@ def fused_mixture_elbo(key_u32, k_logits: torch.Tensor,
                        noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                        noise_mode: str = 'threefry') -> HeadOutputs:
     """The head: the CUDA kernels for CUDA tensors, the plain versions for
-    CPU tensors (``FusedHead``). ``key_u32`` is a ``(k0, k1)`` threefry key;
-    ``k_logits [B,K]``, ``q_means``/``q_logvars [B,K,D]``; ``tau`` a scalar
-    temperature. ``noise_mode='xla'`` streams ``elbo.head_noise(key)``
-    unless ``noise`` is given."""
+    CPU tensors (``FusedHead``). ``key_u32`` is a ``(k0, k1)`` threefry key
+    or its words as an int32 ``[2]`` tensor; ``k_logits [B,K]``,
+    ``q_means``/``q_logvars [B,K,D]``; ``tau`` a scalar temperature, a
+    number or a float32 0-dim tensor. ``noise_mode='xla'`` streams
+    ``elbo.head_noise(key)`` unless ``noise`` is given."""
     device = k_logits.device
     if device.type not in ('cpu', 'cuda'):
         raise ValueError(f'fused_mixture_elbo: unsupported device {device}')
@@ -172,8 +182,9 @@ def launch_args(key_u32, k_logits, q_means, q_logvars, prior, tau, hard,
                 noise):
     """Check the inputs and allocate the outputs of one kernel launch:
     ``(args, (z, y, scal))``, where ``args`` are the C function's arguments
-    on the current stream. ``chip_smoke.py`` reuses them to time the bare
-    kernel."""
+    on the current stream (holding the key and tau on the card,
+    ``_build.head_scalars``). ``chip_smoke.py`` reuses them to time the
+    bare kernel."""
     b, k = k_logits.shape
     d = q_means.shape[-1]
     _check_sizes(b, k, d)
@@ -186,15 +197,15 @@ def launch_args(key_u32, k_logits, q_means, q_logvars, prior, tau, hard,
                          'prior_logvars': (prior.logvars, (k, d)),
                          'g': (g_in, (b, k)), 'eps': (eps_in, (b, d))},
                         k_logits.device)
-    k0, k1 = (int(w) & 0xFFFFFFFF for w in key_u32)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     dev = k_logits.device
+    key_t, tau_t = _build.head_scalars(key_u32, tau, dev)
     z = torch.empty((b, d), dtype=torch.float32, device=dev)
     y = torch.empty((b, k), dtype=torch.float32, device=dev)
     scal = torch.empty((b, 8), dtype=torch.float32, device=dev)
     args = (ptr(k_logits), ptr(q_means), ptr(q_logvars),
             ptr(prior.pi_logits), ptr(prior.means), ptr(prior.logvars),
             ptr(g_in), ptr(eps_in), ptr(z), ptr(y), ptr(scal),
-            b, k, d, k0, k1, float(tau), int(bool(hard)),
+            b, k, d, ptr(key_t), ptr(tau_t), int(bool(hard)),
             torch.cuda.current_stream(dev).cuda_stream)
-    return args, (z, y, scal)
+    return _build.Args(args, (key_t, tau_t)), (z, y, scal)

@@ -192,8 +192,9 @@ def launch_args(key_u32: Sequence[int], k_logits, q_means, q_logvars,
     """Check the inputs and allocate the outputs of one backward launch:
     ``(args, grads)``, ``args`` the C function's arguments on the current
     stream (the last a pointer to a C int that receives the blocks
-    launched), ``grads`` the ``BwdGrads`` it fills. ``chip_smoke.py`` reuses
-    them to time the bare kernel."""
+    launched; they hold the key and tau on the card,
+    ``_build.head_scalars``, and the scratch), ``grads`` the ``BwdGrads``
+    it fills. ``chip_smoke.py`` reuses them to time the bare kernel."""
     b, k = k_logits.shape
     d = q_means.shape[-1]
     g_in, eps_in = noise if noise is not None else (None, None)
@@ -206,8 +207,8 @@ def launch_args(key_u32: Sequence[int], k_logits, q_means, q_logvars,
               'cs': (cs, (b, 8)), 'cz': (cz, (b, d)), 'cy': (cy, (b, k)),
               'g': (g_in, (b, k)), 'eps': (eps_in, (b, d))}
     _build.check_inputs(inputs, k_logits.device)
-    k0, k1 = (int(w) & 0xFFFFFFFF for w in key_u32)
     dev = k_logits.device
+    key_t, tau_t = _build.head_scalars(key_u32, tau, dev)
     empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
     grads = BwdGrads(empty(b, k), empty(b, k, d), empty(b, k, d), empty(k),
                      empty(k, d), empty(k, d))
@@ -218,10 +219,10 @@ def launch_args(key_u32: Sequence[int], k_logits, q_means, q_logvars,
     args = (ptr(k_logits), ptr(q_means), ptr(q_logvars), ptr(pi_logits),
             ptr(p_means), ptr(p_logvars), ptr(g_in), ptr(eps_in), ptr(cs),
             ptr(cz), ptr(cy), *(ptr(t) for t in grads), ptr(scratch),
-            ptr(_ticket(dev)), b, k, d, k0, k1, float(tau), int(bool(hard)),
-            torch.cuda.current_stream(dev).cuda_stream,
+            ptr(_ticket(dev)), b, k, d, ptr(key_t), ptr(tau_t),
+            int(bool(hard)), torch.cuda.current_stream(dev).cuda_stream,
             ctypes.pointer(ctypes.c_int(0)))
-    return args, grads
+    return _build.Args(args, (key_t, tau_t, scratch)), grads
 
 
 def fused_elbo_bwd(key_u32, k_logits, q_means, q_logvars, pi_logits, p_means,
@@ -229,9 +230,11 @@ def fused_elbo_bwd(key_u32, k_logits, q_means, q_logvars, pi_logits, p_means,
                    noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                    ) -> BwdGrads:
     """The head's backward: the CUDA kernel for CUDA tensors, ``manual_bwd``
-    over the replayed (or streamed) noise for CPU tensors."""
+    over the replayed (or streamed) noise for CPU tensors. The key and tau
+    as ``fused_elbo.fused_mixture_elbo`` takes them."""
     device = k_logits.device
     if device.type == 'cpu':
+        tau = float(tau)
         b, k = k_logits.shape
         g, eps = (noise if noise is not None
                   else replay_noise(key_u32, b, k, q_means.shape[-1]))

@@ -95,8 +95,9 @@ def host_grid(b: int, n: int, row0: int = 0, device=None):
 def replay_noise(key_u32: Sequence[int], b: int, k: int, d: int,
                  device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The head kernels' threefry noise, regenerated in plain torch:
-    Gumbel ``g [B,K]`` and normal ``eps [B,D]``."""
-    k0, k1 = (int(w) for w in key_u32)
+    Gumbel ``g [B,K]`` and normal ``eps [B,D]``. ``key_u32``: a ``(k0,
+    k1)`` pair or its words in an int32 tensor."""
+    k0, k1 = (int(w) & MASK32 for w in key_u32)
     g = gumbel_from_grid(k0, k1, *host_grid(b, k, device=device))
     eps = normal_from_grid(k0, k1, *host_grid(b, d, device=device))
     return g, eps

@@ -137,8 +137,9 @@ def launch_args(key_u32, tau, feats, wk, bk, wm, bm, wlv, blv, pi_logits,
                 p_means, p_logvars, k: int, d: int):
     """Check the inputs and allocate the outputs of one kernel launch:
     ``(args, (z, y, scal, k_logits))``, ``args`` the C function's
-    arguments on the current stream. ``chip_smoke.py`` reuses them to time
-    the bare kernel."""
+    arguments on the current stream (holding the key and tau on the card,
+    ``_build.head_scalars``). ``chip_smoke.py`` reuses them to time the
+    bare kernel."""
     b, h = feats.shape
     n = k * d
     _check_sizes(b, k, d)
@@ -153,11 +154,11 @@ def launch_args(key_u32, tau, feats, wk, bk, wm, bm, wlv, blv, pi_logits,
     if smem > SMEM_LIMIT:
         raise ValueError(f'wide_head: H={h}, K={k}, D={d} needs {smem} bytes '
                          f'of shared memory a block, over {SMEM_LIMIT}')
-    k0, k1 = (int(w) & 0xFFFFFFFF for w in key_u32)
+    key_t, tau_t = _build.head_scalars(key_u32, tau, dev)
     empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
     out = (empty(b, d), empty(b, k), empty(b, 8), empty(b, k))
     args = (*(t.data_ptr() for t in (feats, wk, bk, wm, bm, wlv, blv,
                                      pi_logits, p_means, p_logvars, *out)),
-            b, h, k, d, k0, k1, float(tau),
+            b, h, k, d, key_t.data_ptr(), tau_t.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
-    return args, out
+    return _build.Args(args, (key_t, tau_t)), out

@@ -28,6 +28,11 @@ def group_up() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
+def backend() -> Optional[str]:
+    """The process group's backend ('nccl', 'gloo'); None without one."""
+    return dist.get_backend() if group_up() else None
+
+
 def world() -> Tuple[int, int]:
     """``(rank, size)`` of the process group; ``(0, 1)`` without one."""
     if not group_up():

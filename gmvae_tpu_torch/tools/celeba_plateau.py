@@ -51,7 +51,9 @@ def _trainer(ds, seed, plain, steps, every, name):
                               metrics_mode='stacked')
     tr = training.Trainer(cfg, dataset=ds, device='cuda')
     if plain:
+        # eager steps: the plain head draws its noise from a key on the host
         tr.model.head_fn = fused_elbo.fused_mixture_elbo_plain
+        tr.graphs = None
     return tr
 
 

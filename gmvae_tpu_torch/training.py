@@ -25,9 +25,12 @@ on a copy stream, one chunk ahead of the compute.
 
 The reference scans ``scan_steps`` steps inside one compiled program; here
 a chunk is a Python loop over the same steps that reads nothing back from
-the device until its end. The model's parameters are views into one flat
-float32 buffer, so the gradient is one concatenation and the optimizer a
-handful of elementwise launches over that buffer.
+the device until its end. On a card the loop replays each step as CUDA
+graphs captured from the trainer's first step (``StepGraphs``), bit for bit
+the eager step, which the CPU and the cases of ``eager_reason`` run. The
+model's parameters are views into one flat float32 buffer, so the gradient
+is one concatenation and the optimizer a handful of elementwise launches
+over that buffer.
 
 Eval sweeps the test set in fixed-size batches exactly as the reference
 does: the set is padded by tiling to a multiple of the batch, batch ``c``
@@ -54,6 +57,7 @@ from gmvae_tpu_torch.configs import Config
 from gmvae_tpu_torch.deep import DeepGMVAE
 from gmvae_tpu_torch.elbo import mixture_elbo_head
 from gmvae_tpu_torch.gmvae import GMVAE
+from gmvae_tpu_torch.ops.kernels import _build
 from gmvae_tpu_torch.ops.kernels.fused_elbo import fused_mixture_elbo
 from gmvae_tpu_torch.parallel import mesh
 from gmvae_tpu_torch.parallel.mesh import pad_to_multiple
@@ -131,14 +135,20 @@ def clip_by_global_norm(max_norm: float) -> Callable:
 
 def clip_by_leaf_norm(max_norm: float) -> Callable:
     """Each leaf scaled to norm <= ``max_norm`` on its own:
-    ``g * min(1, max / max(|g|, 1e-12))``."""
+    ``g * min(1, max / max(|g|, 1e-12))``. The leaf lengths go to the
+    device once for each layout and device, not at every step (a copy that
+    would wait for the card)."""
+    counts: Dict[Tuple[Tuple[int, ...], torch.device], torch.Tensor] = {}
+
     def clip(g, sizes):
+        sizes = tuple(sizes)
+        if (sizes, g.device) not in counts:
+            counts[sizes, g.device] = torch.tensor(sizes, device=g.device)
         leaves = torch.split(g, list(sizes))
         norms = torch.stack(torch._foreach_norm(leaves))
         scale = torch.clamp_max(max_norm / torch.clamp_min(norms, 1e-12), 1.0)
-        return g * torch.repeat_interleave(
-            scale, torch.tensor(list(sizes), device=g.device),
-            output_size=g.numel())
+        return g * torch.repeat_interleave(scale, counts[sizes, g.device],
+                                           output_size=g.numel())
     return clip
 
 
@@ -163,9 +173,20 @@ class AdamState(NamedTuple):
 
 class Optimizer(NamedTuple):
     """``init(flat_params) -> AdamState``; ``update(g, state, sizes) ->
-    (u, state')``, the update ``u`` to add to the flat parameters."""
+    (u, state')``, the update ``u`` to add to the flat parameters.
+
+    The step's CUDA graphs (``StepGraphs``) run ``update`` in two parts:
+    ``clip(g, sizes) -> g`` (None: no clip), then ``update_(g, state,
+    inv_bc) -> u``, the rest, with the moments overwritten in place and the
+    bias corrections read from the device: ``inv_bc`` holds their float32
+    reciprocals at the step's count, 0-dim tensors that ``inv_bias(count)``
+    gives the values of. A division by a host scalar is that multiply on
+    the card, so the two parts give ``update``'s bits there."""
     init: Callable[[torch.Tensor], AdamState]
     update: Callable[..., Tuple[torch.Tensor, AdamState]]
+    clip: Optional[Callable] = None
+    update_: Optional[Callable] = None
+    inv_bias: Optional[Callable[[int], Tuple[np.float32, np.float32]]] = None
 
 
 def scale_by_adam_lowmem(b1: float = 0.9, b2: float = 0.999,
@@ -178,22 +199,39 @@ def scale_by_adam_lowmem(b1: float = 0.9, b2: float = 0.999,
     ``1 - b^count`` taken in float32, and downcasts for storage. Its
     ``update`` is the direction, before the learning rate."""
     f32 = np.float32
+    in_place = state_dtype == torch.float32
 
     def init(params):
         return AdamState(0, torch.zeros_like(params, dtype=state_dtype),
                          torch.zeros_like(params, dtype=state_dtype))
 
+    def bias(count):
+        c = f32(count)
+        return f32(1.0) - f32(b1) ** c, f32(1.0) - f32(b2) ** c
+
     def update(g, state, sizes=None):
         count = state.count + 1
-        c = f32(count)
-        bc1 = float(f32(1.0) - f32(b1) ** c)
-        bc2 = float(f32(1.0) - f32(b2) ** c)
+        bc1, bc2 = (float(bc) for bc in bias(count))
         mu = b1 * state.mu.float() + (1 - b1) * g
         nu = b2 * state.nu.float() + (1 - b2) * torch.square(g)
         out = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
         return out, AdamState(count, mu.to(state_dtype), nu.to(state_dtype))
 
-    return Optimizer(init, update)
+    def update_(g, state, inv_bc):
+        # float32 moments take the blend's sum directly
+        mu = torch.add(b1 * state.mu.float(), (1 - b1) * g,
+                       out=state.mu if in_place else None)
+        nu = torch.add(b2 * state.nu.float(), (1 - b2) * torch.square(g),
+                       out=state.nu if in_place else None)
+        if not in_place:
+            state.mu.copy_(mu)
+            state.nu.copy_(nu)
+        return (mu * inv_bc[0]) / (torch.sqrt(nu * inv_bc[1]) + eps)
+
+    def inv_bias(count):
+        return tuple(f32(1.0) / bc for bc in bias(count))
+
+    return Optimizer(init, update, update_=update_, inv_bias=inv_bias)
 
 
 def make_optimizer(cfg: Config) -> Optimizer:
@@ -220,7 +258,10 @@ def make_optimizer(cfg: Config) -> Optimizer:
         u, state = adam.update(g, state)
         return u * -lr, state
 
-    return Optimizer(adam.init, update)
+    def update_(g, state, inv_bc):
+        return adam.update_(g, state, inv_bc) * -lr
+
+    return Optimizer(adam.init, update, clip, update_, adam.inv_bias)
 
 
 # ---------------------------------------------------------------------------
@@ -251,9 +292,12 @@ def make_loss_fn(model: Model, cfg: Config) -> Callable:
     """``loss_fn(x, key, step) -> (loss, metrics)``: the negative ELBO with
     the KL annealed by beta, plus the balance regularizer KL(mean_batch
     q(k|x) || uniform) and the confidence regularizer E_x[H(q(k|x))] when
-    weighted. The reported ``elbo`` is never annealed."""
-    def loss_fn(x: torch.Tensor, key: prng.Key, step: int):
-        tau, beta = schedules(cfg, step)
+    weighted. The reported ``elbo`` is never annealed. ``schedule=(tau,
+    beta)`` stands for ``schedules(cfg, step)`` where given: the step's
+    graphs pass 0-dim tensors on the card, and the key as its words there
+    (``fused_mixture_elbo``)."""
+    def loss_fn(x: torch.Tensor, key: prng.Key, step: int, schedule=None):
+        tau, beta = schedules(cfg, step) if schedule is None else schedule
         elbo, aux = model.elbo_terms(x, key, tau)
         log_px_z = aux['log_px_z']
         kl_total = log_px_z - elbo   # whatever the elbo_form charges
@@ -291,40 +335,104 @@ def flatten_params(model: torch.nn.Module) -> torch.Tensor:
     return flat
 
 
-def make_train_step(model: Model, cfg: Config, tx: Optimizer,
-                    flat: torch.Tensor, shard: int = 0) -> Callable:
-    """``train_step(opt_state, batch_u8, base_key, step) -> (opt_state,
-    device metrics [5], (tau, beta))``: one update of ``flat`` (the
-    model's parameter buffer, see ``flatten_params``) in place, from this
-    process's ``shard`` of the step's batch. The gradient and the device
-    metrics go through one all-reduce (``mesh.all_reduce_mean_``; nothing
-    without a process group) before the clip and Adam."""
+def step_keys(base_key: prng.Key, step, shard: int):
+    """A step's binarization and head keys: the two splits of
+    ``fold_in(fold_in(base_key, step), shard)``. ``step`` may be an int64
+    numpy array of steps, and the keys' words then arrays beside it."""
+    return prng.split(prng.fold_in(prng.fold_in(base_key, step), shard))
+
+
+def make_grad_fn(model: Model, cfg: Config) -> Callable:
+    """``grad_buf(x, key, step, schedule=None) -> (buf [n + 5], metrics)``:
+    the loss's (``make_loss_fn``) gradient over the model's parameters,
+    flat, then the five device metrics (``METRIC_KEYS[:5]``), averaged over
+    the process group in one all-reduce (``mesh.all_reduce_mean_``; nothing
+    without a group)."""
     loss_fn = make_loss_fn(model, cfg)
     params = list(model.parameters())
-    sizes = [p.numel() for p in params]
-    n = sum(sizes)
 
-    def train_step(opt_state, batch_u8: torch.Tensor, base_key: prng.Key,
-                   step: int):
-        key = prng.fold_in(prng.fold_in(base_key, step), shard)
-        k_pre, k_elbo = prng.split(key)
-        with span('gmvae.data_gather'):
-            x = data_lib.preprocess_batch(k_pre, batch_u8, cfg.binarize)
+    def grad_buf(x, key, step, schedule=None):
         with torch.enable_grad():
-            loss, m = loss_fn(x, k_elbo, step)
+            loss, m = loss_fn(x, key, step, schedule)
             grads = torch.autograd.grad(loss, params)
         with torch.no_grad():
             buf = torch.cat([t.reshape(-1) for t in grads]
                             + [m[k].detach().float().reshape(1)
                                for k in METRIC_KEYS[:5]])
             mesh.all_reduce_mean_(buf)
-            with span('gmvae.optimizer'):
-                updates, opt_state = tx.update(buf[:n], opt_state, sizes)
-                flat.add_(updates)
+        return buf, m
+
+    return grad_buf
+
+
+def make_train_step(model: Model, cfg: Config, tx: Optimizer,
+                    flat: torch.Tensor, shard: int = 0) -> Callable:
+    """``train_step(opt_state, batch_u8, base_key, step) -> (opt_state,
+    device metrics [5], (tau, beta))``: one update of ``flat`` (the
+    model's parameter buffer, see ``flatten_params``) in place, from this
+    process's ``shard`` of the step's batch. The gradient and the device
+    metrics go through one all-reduce (``make_grad_fn``) before the clip
+    and Adam."""
+    grad_buf = make_grad_fn(model, cfg)
+    sizes = [p.numel() for p in model.parameters()]
+    n = sum(sizes)
+
+    def train_step(opt_state, batch_u8: torch.Tensor, base_key: prng.Key,
+                   step: int):
+        k_pre, k_elbo = step_keys(base_key, step, shard)
+        with span('gmvae.data_gather'):
+            x = data_lib.preprocess_batch(k_pre, batch_u8, cfg.binarize)
+        buf, m = grad_buf(x, k_elbo, step)
+        with torch.no_grad(), span('gmvae.optimizer'):
+            updates, opt_state = tx.update(buf[:n], opt_state, sizes)
+            flat.add_(updates)
         # a copy: a view would keep the whole buffer alive for the chunk
         return opt_state, buf[n:].clone(), (m['tau'], m['beta'])
 
     return train_step
+
+
+# A chunk's per-step values that reach the card, one row a step
+# (``step_scalars``), as int32 words: a float32 value as its bits
+SCALAR_COLS = ('k_pre0', 'k_pre1', 'k_elbo0', 'k_elbo1', 'tau', 'beta',
+               'inv_bc1', 'inv_bc2', 'step')
+
+
+def step_scalars(cfg: Config, tx: Optimizer, base_key: prng.Key, shard: int,
+                 step0: int, count0: int, n_steps: int) -> torch.Tensor:
+    """``[n_steps, len(SCALAR_COLS)]`` int32 on the host, row i for step
+    ``step0 + i``: its keys (``step_keys``), tau and beta (``schedules``),
+    the reciprocals of Adam's bias corrections at count ``count0 + i + 1``
+    (``tx.inv_bias``) and the step, each float32 as its bits: what
+    ``train_step`` works out on the host, worked out for a whole chunk."""
+    steps = np.arange(step0, step0 + n_steps, dtype=np.int64)
+    (p0, p1), (e0, e1) = step_keys(base_key, steps, shard)
+    vals = np.array([[float(v) for v in schedules(cfg, int(step))]
+                     + list(tx.inv_bias(count0 + i + 1))
+                     for i, step in enumerate(steps)], np.float32)
+    words = np.concatenate([np.stack([p0, p1, e0, e1], 1).astype(np.uint32),
+                            vals.reshape(n_steps, 4).view(np.uint32),
+                            steps[:, None].astype(np.uint32)], 1)
+    return torch.from_numpy(words.view(np.int32))
+
+
+def eager_reason(cfg: Config, device: torch.device,
+                 backend: Optional[str], n_dp: int) -> Optional[str]:
+    """Why a trainer on ``device`` in a process group of ``n_dp`` ranks
+    over ``backend`` (None: no group) runs its steps eagerly, or None
+    where it replays them as CUDA graphs (``StepGraphs``)."""
+    if device.type != 'cuda':
+        return 'not a CUDA device'
+    if cfg.model_family == 'deep':
+        return 'the deep family draws its noise outside the head kernels'
+    if not cfg.fused or cfg.fused_noise == 'xla':
+        return ('the head\'s noise is drawn outside the head kernels, from '
+                'keys on the host')
+    if backend == 'gloo':
+        return 'gloo\'s all-reduce goes through host memory'
+    if n_dp > 1:
+        return 'an all-reduce over several ranks is not captured'
+    return None
 
 
 class TrainState(NamedTuple):
@@ -399,21 +507,132 @@ def evaluate(eval_step: Callable, cfg: Config, test_x: np.ndarray,
 # ---------------------------------------------------------------------------
 
 
-def _chunk_metrics(cfg: Config, dev_rows: List[torch.Tensor],
-                   host_rows: List[Tuple[torch.Tensor, torch.Tensor]]
+def _chunk_metrics(cfg: Config, dev: torch.Tensor, host: torch.Tensor
                    ) -> Dict[str, torch.Tensor]:
-    """A chunk's metrics as float32 CPU tensors: ``[S]`` per key
+    """A chunk's metrics as float32 CPU tensors from its device metrics
+    ``dev [S, 5]`` and (tau, beta) ``host [S, 2]``: ``[S]`` per key
     ('stacked'), or the chunk mean as ``[1]`` ('mean'), summed in step
     order as the reference's scan carry does."""
-    dev = torch.stack(dev_rows).cpu()                             # [S, 5]
-    host = torch.stack([torch.stack(r) for r in host_rows])       # [S, 2]
-    cols = torch.cat([dev, host.to(torch.float32)], dim=1)        # [S, 7]
+    cols = torch.cat([dev.cpu(), host.to(torch.float32)], dim=1)  # [S, 7]
     if cfg.metrics_mode == 'mean':
         acc = torch.zeros(cols.shape[1])
         for row in cols:
             acc = acc + row
         cols = (acc / float(cols.shape[0]))[None]
     return {k: cols[:, i].clone() for i, k in enumerate(METRIC_KEYS)}
+
+
+class StepGraphs:
+    """A trainer's step as three CUDA graphs, replayed at every step after
+    its first: the forward and backward with the gradient's concatenation
+    and all-reduce (``make_grad_fn``), launched under the ``gmvae.step``
+    span; the clip, under ``gmvae.optimizer`` and ``gmvae.clip``; Adam and
+    the update of the parameters, under ``gmvae.optimizer``. A replay
+    launches a graph's hundreds of kernels for microseconds of the host's
+    time, so the host's dispatch no longer paces the card.
+
+    The graphs read and write static buffers, made at the first ``load``:
+    the step's input ``x`` (the gather and ``preprocess_batch`` stay eager
+    and write it), the step's row ``slot`` of the chunk's scalar table
+    (``step_scalars``: the head kernels read the key and tau from it, the
+    loss beta, Adam the bias corrections), the model's flat parameters and
+    the moments ``opt``.
+    The trainer's first step runs the same three parts eagerly on a side
+    stream, the warm-up that capture needs, then captures them, with the
+    model's head as it is then (a head swapped in later needs the trainer's
+    ``graphs`` set to None). The kernel launches of a graph count in
+    ``_build.LAUNCHES`` at each replay, not at the capture, and
+    ``_build.REPLAYS['train_step']`` counts the replayed steps."""
+
+    def __init__(self, grad_buf: Callable, tx: Optimizer, flat: torch.Tensor,
+                 sizes: List[int], x_shape: Tuple[int, ...]):
+        self.grad_buf, self.tx, self.flat = grad_buf, tx, flat
+        self.sizes, self.n = list(sizes), sum(sizes)
+        self.x_shape = x_shape
+        self.x: Optional[torch.Tensor] = None
+        self.slot: Optional[torch.Tensor] = None
+        self.opt: Optional[AdamState] = None
+        self.graphs: Optional[List[Optional[torch.cuda.CUDAGraph]]] = None
+        self.launches: Dict[str, int] = {}   # the three graphs' launches
+        self.outs: List[torch.Tensor] = []   # their outputs
+        self.metrics: Optional[torch.Tensor] = None
+
+    def load(self, opt: AdamState) -> None:
+        """Copy Adam's moments in; the static buffers are made at the first
+        call, so a trainer that never trains holds none."""
+        if self.opt is None:
+            dev = self.flat.device
+            self.x = torch.empty(self.x_shape, dtype=torch.float32,
+                                 device=dev)
+            self.slot = torch.zeros(len(SCALAR_COLS), dtype=torch.int32,
+                                    device=dev)
+            self.opt = AdamState(0, torch.empty_like(opt.mu),
+                                 torch.empty_like(opt.nu))
+        self.opt.mu.copy_(opt.mu)
+        self.opt.nu.copy_(opt.nu)
+
+    def _parts(self) -> List[Optional[Callable]]:
+        """The step's three parts over the static buffers (the clip None
+        without one): the gradient buffer from the input, the gradient
+        fed to Adam from it, the update of the parameters from that."""
+        col = SCALAR_COLS.index
+        f32 = self.slot.view(torch.float32)
+        key = self.slot[col('k_elbo0'):col('k_elbo1') + 1]
+        schedule = (f32[col('tau')], f32[col('beta')])
+        inv_bc = (f32[col('inv_bc1')], f32[col('inv_bc2')])
+        n, tx = self.n, self.tx
+        return [lambda _: self.grad_buf(self.x, key, None, schedule)[0],
+                None if tx.clip is None
+                else lambda buf: tx.clip(buf[:n], self.sizes),
+                lambda g: self.flat.add_(tx.update_(g[:n], self.opt, inv_bc))]
+
+    @staticmethod
+    def _run(parts, launch) -> torch.Tensor:
+        """The parts in turn under their spans, ``launch(i, part, arg)``
+        running part i; returns the gradient buffer."""
+        buf = launch(0, parts[0], None)
+        with torch.no_grad(), span('gmvae.optimizer'):
+            g = buf
+            if parts[1] is not None:
+                with span('gmvae.clip'):
+                    g = launch(1, parts[1], buf)
+            launch(2, parts[2], g)
+        return buf
+
+    def step(self) -> torch.Tensor:
+        """One step from ``x`` and ``slot``: its five device metrics, a
+        view of a static buffer until the next step."""
+        if self.graphs is not None:
+            self._run(self.graphs, lambda i, graph, _: graph.replay())
+            for name, n in self.launches.items():
+                _build.LAUNCHES[name] += n
+            _build.REPLAYS['train_step'] += 1
+            return self.metrics
+        compute = torch.cuda.current_stream(self.flat.device)
+        side = torch.cuda.Stream(self.flat.device)
+        side.wait_stream(compute)
+        with torch.cuda.stream(side):
+            parts = self._parts()
+            metrics = self._run(parts, lambda i, part, arg: part(arg))[
+                self.n:].clone()
+            before = dict(_build.LAUNCHES)
+            self.graphs = [None] * 3
+            pool = torch.cuda.graph_pool_handle()
+
+            def capture(i, part, arg):
+                self.graphs[i] = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self.graphs[i], pool=pool,
+                                      stream=side):
+                    self.outs.append(part(arg))
+                return self.outs[-1]
+
+            self.metrics = self._run(parts, capture)[self.n:]
+            self.launches = {k: v - before[k]
+                             for k, v in _build.LAUNCHES.items()}
+            _build.LAUNCHES.update(before)
+        compute.wait_stream(side)
+        metrics.record_stream(compute)
+        return metrics
 
 
 class Staged(NamedTuple):
@@ -493,6 +712,13 @@ class Trainer:
                                           shard=self.rank)
         self.eval_step = make_eval_step(self.model, cfg)
         self.base_key = prng.prng_key(cfg.seed)
+        # set graphs to None to run a card's steps eagerly
+        self.eager_reason = eager_reason(cfg, self.device, mesh.backend(),
+                                         self.n_dp)
+        self.graphs = None if self.eager_reason else StepGraphs(
+            make_grad_fn(self.model, cfg), self.tx, self.flat,
+            [p.numel() for p in self.model.parameters()],
+            (self.b_local, *cfg.image_shape))
         xs = np.asarray(self.dataset.train_x)
         if cfg.data_placement == 'host_stream':
             # the train set stays in host memory (pinned on a card, so the
@@ -652,9 +878,10 @@ class Trainer:
         rows of this rank's plan (device placement) or ``Staged`` batches
         (``host_stream``). Nothing is read back from the device until the
         chunk's end; the metrics come back as float32 CPU tensors
-        (``_chunk_metrics``), averaged over the ranks."""
+        (``_chunk_metrics``), averaged over the ranks. The steps replay
+        ``graphs`` where the trainer has them, else run ``train_step``
+        (``eager_reason`` says why)."""
         self.bind(state)
-        opt_state = state.opt_state.clone()
         if isinstance(payload, Staged):
             batches = payload.batches
             if payload.ready is not None:
@@ -667,20 +894,52 @@ class Trainer:
             shape = (self.b_local, *self.cfg.image_shape)
             n_steps = payload.shape[0]
             batch_at = lambda i: self.x_all[payload[i]].reshape(shape)  # noqa: E731
-        dev_rows, host_rows = [], []
         step = int(state.step)
-        for i in range(n_steps):
-            with span('gmvae.step'):
-                with span('gmvae.data_gather'):
-                    batch = batch_at(i)
-                opt_state, m_dev, m_host = self.train_step(
-                    opt_state, batch, self.base_key, step + i)
-            dev_rows.append(m_dev)
-            host_rows.append(m_host)
+        if self.graphs is not None:
+            opt_state, dev, host = self._replay_chunk(state, batch_at,
+                                                      n_steps)
+        else:
+            opt_state = state.opt_state.clone()
+            dev_rows, host_rows = [], []
+            for i in range(n_steps):
+                with span('gmvae.step'):
+                    with span('gmvae.data_gather'):
+                        batch = batch_at(i)
+                    opt_state, m_dev, m_host = self.train_step(
+                        opt_state, batch, self.base_key, step + i)
+                dev_rows.append(m_dev)
+                host_rows.append(torch.stack(m_host))
+            dev, host = torch.stack(dev_rows), torch.stack(host_rows)
         params = {k: v.detach().clone()
                   for k, v in self.model.state_dict().items()}
         new_state = TrainState(params, opt_state, step + n_steps)
-        return new_state, _chunk_metrics(self.cfg, dev_rows, host_rows)
+        return new_state, _chunk_metrics(self.cfg, dev, host)
+
+    def _replay_chunk(self, state: TrainState, batch_at: Callable,
+                      n_steps: int):
+        """``run_chunk``'s steps through ``graphs``, the parameters already
+        bound: (the new Adam state, device metrics ``[S, 5]``, (tau, beta)
+        ``[S, 2]``). The chunk's scalar table goes to the card in one copy
+        before its first step; each step copies its row into the slot."""
+        g, cfg, col = self.graphs, self.cfg, SCALAR_COLS.index
+        opt = state.opt_state
+        table = step_scalars(cfg, self.tx, self.base_key, self.rank,
+                             int(state.step), opt.count, n_steps)
+        on_card = table.pin_memory().to(self.device, non_blocking=True)
+        words = table.numpy().view(np.uint32)
+        g.load(opt)
+        dev = torch.empty((n_steps, 5), device=self.device)
+        for i in range(n_steps):
+            with span('gmvae.step'):
+                with span('gmvae.data_gather'):
+                    k_pre = tuple(int(w) for w in words[i, :2])
+                    data_lib.preprocess_batch(k_pre, batch_at(i),
+                                              cfg.binarize, out=g.x)
+                g.slot.copy_(on_card[i])
+                dev[i].copy_(g.step())
+        host = table[:, [col('tau'), col('beta')]].view(torch.float32)
+        return (AdamState(opt.count + n_steps, g.opt.mu.clone(),
+                          g.opt.nu.clone()), dev, host)
 
     def evaluate(self, state: TrainState, max_examples: Optional[int] = None,
                  dataset: Optional[data_lib.Dataset] = None

@@ -39,15 +39,17 @@ def span(name: str):
     (``portbench/metrics/<metric>.py``):
 
     - ``gmvae.step`` (``Trainer.run_chunk``, one step: the gather and
-      ``train_step``): ``host_copies_per_step``, and the steps every
-      ``*_per_step`` metric below divides by;
-    - ``gmvae.data_gather`` (the gather, and ``train_step``'s
-      ``preprocess_batch``): ``data_gather_ms_per_step``;
-    - ``gmvae.optimizer`` (``train_step``: clip, Adam, the ``-lr`` scale
-      and the update of the parameters): ``optimizer_ms_per_step``,
+      ``train_step``, or the replay of ``training.StepGraphs``' forward and
+      backward graph and the two inside the spans below):
+      ``host_copies_per_step``, and the steps every ``*_per_step`` metric
+      below divides by;
+    - ``gmvae.data_gather`` (the gather, and ``preprocess_batch``):
+      ``data_gather_ms_per_step``;
+    - ``gmvae.optimizer`` (clip, Adam, the ``-lr`` scale and the update of
+      the parameters, run or replayed): ``optimizer_ms_per_step``,
       ``adam_ms_per_step``;
-    - ``gmvae.clip`` (``make_optimizer``'s clip, inside
-      ``gmvae.optimizer``): ``clip_ms_per_step``;
+    - ``gmvae.clip`` (the clip, inside ``gmvae.optimizer``):
+      ``clip_ms_per_step``;
     - ``gmvae.serve.call`` (``serving.Program.__call__``, its whole body):
       ``serve_idle_ms_per_req``, and the requests
       ``serve_model_ms_per_req`` divides by;

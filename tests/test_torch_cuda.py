@@ -550,7 +550,9 @@ def test_train_steps_through_kernels_match_plain_head(dev):
     got, m_got = trainer.run_chunk(state, idx)
     assert _build.LAUNCHES['fused_elbo_fwd'] == n_fwd + 5
     assert _build.LAUNCHES['fused_elbo_bwd'] == n_bwd + 5
+    # the plain head in eager steps: the step's graphs hold the kernels
     trainer.model.head_fn = fused_elbo.fused_mixture_elbo_plain
+    trainer.graphs = None
     g_ref = grads()
     ref, m_ref = trainer.run_chunk(state, idx)
     assert _build.LAUNCHES['fused_elbo_fwd'] == n_fwd + 5
